@@ -1,0 +1,34 @@
+"""dlp_admm_torch: the PyTorch/CUDA port of ``dlp_admm_tpu``.
+
+The JAX package ``dlp_admm_tpu`` is the reference; this package mirrors its
+module names (``config``, ``scenarios``, ``ops``, ``coordination``,
+``solvers``, ``models``, ``utils``, ``mpc``) and imports ``torch``, never
+``jax``. So far it carries the consensus-OBCA flagship
+(``models.obca.ConsensusObcaPlanner``, ``mpc.run_obca(Formulation.CONSENSUS)``)
+in float64, with the block-tridiagonal KKT solve of the staged interior-point
+solver as a hand-written CUDA kernel (``csrc/block_thomas.cu``).
+
+Importing the package turns TF32 off for float32 matmuls and convolutions,
+the counterpart of ``dlp_admm_tpu/__init__.py`` forcing full-float32 matmul
+precision: reduced-precision products corrupt the solvers' near-singular KKT
+systems.
+"""
+import torch as _torch
+
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from . import config, scenarios  # noqa: F401,E402
+from .config import (  # noqa: F401,E402
+    DualStrategy,
+    DualUpdateConfig,
+    Formulation,
+    ObcaConfig,
+    PiAdmmConfig,
+    SolverConfig,
+    VehicleConfig,
+    WindupMode,
+)
+
+__version__ = "0.1.0"

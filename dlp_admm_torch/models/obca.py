@@ -1,0 +1,670 @@
+"""Consensus-ADMM OBCA planner (the flagship), ported to PyTorch.
+
+Port of ``ConsensusObcaPlanner`` in ``dlp_admm_tpu/models/obca.py`` (≙ the
+reference's ``decentralized/optimizer.py`` + ``decentralized_overtaking_ADMM.py``):
+per-vehicle NLPs over (X_i, U_i, lambda, elastic slacks) with augmented-
+Lagrangian coupling to an edge/RSU consensus NLP over Z = (states, lambda),
+and dual ascent (+ saturation) on lambda_bar.
+
+Both NLP families are solved by the staged interior-point solver
+(:mod:`..solvers.ip_staged`): the V local NLPs as one batch of V lanes, the
+edge NLP as one lane whose stages are the horizon steps. Every KKT solve of
+either goes through the block-Thomas CUDA kernel on a CUDA device.
+
+The JAX version runs the ADMM loop as a ``lax.while_loop`` on the device;
+here it is a Python loop whose one host read per iteration is the ``done``
+flag, and whose carry stays on the planner's device. Collision constraint
+blocks (paper eq. (4)/(5)/(6)):
+
+    (4a)  -b_i(x_i)^T l_i - b_j(x_j)^T l_j >= d_min
+    (4b)  A_i(x_i)^T l_i + A_j(x_j)^T l_j  = 0
+    (4c)  ||A_i(x_i)^T l_i||^2 <= 1,  l >= 0
+
+Only the flagship's configuration surface is ported so far (staged locals
+and staged edge); the other options raise ``NotImplementedError`` naming the
+ROADMAP item that holds them.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import scenarios
+from ..config import (DualStrategy, DualUpdateConfig, ObcaConfig,
+                      SolverConfig, VehicleConfig, WindupMode)
+from ..coordination.dual_update import DualState, update_dual
+from ..ops.dynamics import bicycle_rhs
+from ..ops.geometry import halfspaces
+from ..ops.pairs import pair_indices
+from ..solvers.ip_staged import StagedNLP, solve_staged
+
+_TODO_OPTIONS = "ROADMAP.md queue 1, item 'ConsensusObcaPlanner options'"
+_TODO_F32 = "ROADMAP.md queue 1, item 'f32 flagship profile'"
+
+
+def _box_bounds(ocfg: ObcaConfig, vcfg: VehicleConfig, **kw):
+    """(lo_x [5], hi_x [5], hi_u [2]) of the state/control boxes, made once
+    per planner: a host-to-device copy inside a stage function would run on
+    every IP trip and cannot be captured into a CUDA graph."""
+    lo_x = torch.tensor([0.0, -ocfg.max_y, -vcfg.max_v, -2 * math.pi,
+                         -vcfg.max_front_wheel_angle], **kw)
+    hi_x = torch.tensor([ocfg.max_x, ocfg.max_y, vcfg.max_v, 2 * math.pi,
+                         vcfg.max_front_wheel_angle], **kw)
+    hi_u = torch.tensor([vcfg.max_acc, vcfg.max_steer_rate], **kw)
+    return lo_x, hi_x, hi_u
+
+
+def _box_residuals(x_states, u_ctrls, bounds):
+    """State/control box bounds as >= 0 residuals
+    (ref ``local_generate_variable`` ``optimizer.py:131-142``)."""
+    lo_x, hi_x, hi_u = bounds
+    return torch.cat([
+        (x_states - lo_x).reshape(-1), (hi_x - x_states).reshape(-1),
+        (u_ctrls + hi_u).reshape(-1), (hi_u - u_ctrls).reshape(-1)])
+
+
+class BarState(NamedTuple):
+    """The vehicle<->RSU exchange state (ref ``mid_state``
+    ``decentralized/optimizer.py:351-373``); leading vehicle axis.
+    ``F = 5 + 4 (V-1)`` is the per-vehicle consensus width."""
+
+    z_bar: torch.Tensor      # [V, N-1, F] edge consensus (states + lambda)
+    a_mat: torch.Tensor      # [V, N-1, 4, 2] broadcast halfspace normals
+    b: torch.Tensor          # [V, N-1, 4]
+    lamb_bar: torch.Tensor   # [V, N-1, F] ADMM duals
+    lamb_ij: torch.Tensor    # [V, V-1, N-1, 4] collision duals per nbr slot
+    local_x: torch.Tensor    # [V, N-1, 5] latest local states
+
+
+# warm-start table for lamb_ij (ref optimizer.py:357-371 hard-codes this for
+# the 2-vehicle overtaking scenario, N_horz = 8)
+_LAMB_IJ_TABLE = np.array(
+    [[[1.49, 0.566, 0.566, 1.49], [1.438, 0.514, 0.514, 1.438],
+      [1.387, 0.462, 0.462, 1.387], [1.336, 0.411, 0.411, 1.336],
+      [1.287, 0.361, 0.361, 1.287], [1.238, 0.312, 0.312, 1.238],
+      [1.191, 0.263, 0.263, 1.191]],
+     [[1.436] * 4, [1.325] * 4, [1.213] * 4, [1.1] * 4,
+      [0.986] * 4, [0.871] * 4, [0.755] * 4]])
+
+
+class ConsensusObcaPlanner:
+    """Consensus-ADMM OBCA planner, generalized to N vehicles with the
+    JAX version's neighbour-slot layout (slot k of vehicle i holds its OBCA
+    duals against neighbour ``nbr[i, k]``; for V = 2, F = 9 as in the
+    reference). See ``dlp_admm_tpu.models.obca.ConsensusObcaPlanner`` for the
+    rationale of every option; the defaults are the same.
+
+    ``device`` and ``dtype`` place every tensor of the planner; only
+    float64 is supported so far.
+    """
+
+    def __init__(self, ocfg: ObcaConfig = ObcaConfig(),
+                 vcfg: VehicleConfig = VehicleConfig(),
+                 scfg: SolverConfig = SolverConfig(),
+                 refs: Optional[np.ndarray] = None,
+                 lamb_ij_mode: str = "track_edge",
+                 dual_cfg: Optional[DualUpdateConfig] = None,
+                 local_warm_mode: str = "previous",
+                 gate_pairs: bool = False, gate_thres: float = 10.0,
+                 use_staged: bool = True, edge_mode: str = "staged",
+                 lamb_bar_decay: float = 0.5,
+                 lamb_ij_relax: float = 0.3,
+                 lamb_ij_hysteresis: bool = False,
+                 edge_prox: float = 0.0,
+                 branch_commit: bool = False, commit_after: int = 6,
+                 commit_w: float = 1000.0, local_prox: float = 0.0,
+                 prox_after: int = 0, prox_growth: float = 1.0,
+                 prox_adaptive: bool = False, prox_tau_max: float = 3.0e10,
+                 dtype=torch.float64, device="cpu"):
+        if lamb_ij_mode not in ("frozen", "track_local", "track_edge"):
+            raise ValueError(f"unknown lamb_ij_mode {lamb_ij_mode!r}")
+        if local_warm_mode not in ("reference", "previous"):
+            raise ValueError(f"unknown local_warm_mode {local_warm_mode!r}")
+        if edge_mode not in ("joint", "per_step", "staged"):
+            raise ValueError(f"unknown edge_mode {edge_mode!r}")
+        for name, unported in (
+                ("use_staged=False", not use_staged),
+                (f"edge_mode={edge_mode!r}", edge_mode != "staged"),
+                ("branch_commit", branch_commit),
+                ("prox_adaptive", prox_adaptive),
+                ("lamb_ij_hysteresis", lamb_ij_hysteresis),
+                ("edge_prox != 0", edge_prox != 0.0)):
+            if unported:
+                raise NotImplementedError(
+                    f"{name} is not ported yet ({_TODO_OPTIONS})")
+        if dtype != torch.float64:
+            raise NotImplementedError(
+                f"dtype {dtype}: only float64 is ported so far ({_TODO_F32})")
+        self.ocfg, self.vcfg, self.scfg = ocfg, vcfg, scfg
+        self.lamb_ij_mode = lamb_ij_mode
+        self.local_warm_mode = local_warm_mode
+        # plain ascent + saturation on lamb_bar (see the JAX constructor)
+        self.dual_cfg = dual_cfg if dual_cfg is not None else DualUpdateConfig(
+            strategy=DualStrategy.PLAIN, windup=WindupMode.SAT,
+            windup_sat=20.0, adaptive_rho=False)
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.gate_pairs, self.gate_thres = gate_pairs, gate_thres
+        if refs is None:
+            refs = scenarios.ref_traj_overtake(vcfg, ocfg.num_veh)
+        self.refs = self._t(refs)                        # [V, T/dt+1, 5]
+        v, n = ocfg.num_veh, ocfg.horizon
+        self.num_veh = v
+        self.K = v - 1                                   # neighbour slots
+        self.N_FULL = 5 + 4 * self.K                     # consensus width F
+        nbr = np.array([[j for j in range(v) if j != i] for i in range(v)],
+                       dtype=np.int64).reshape(v, self.K)
+        # rev[i, k] = slot of vehicle i in the list of its k-th neighbour
+        rev = np.array([[i if i < j else i - 1 for j in nbr[i]]
+                        for i in range(v)], dtype=np.int64).reshape(v, self.K)
+        idx_i, idx_j = pair_indices(v)                   # P unordered pairs
+        pid = np.zeros((v, v), dtype=np.int64)
+        for p_, (a, bb) in enumerate(zip(idx_i, idx_j)):
+            pid[a, bb] = pid[bb, a] = p_
+        # index maps as long tensors on the planner's device
+        ix = dict(dtype=torch.long, device=self.device)
+        self._nbr = torch.as_tensor(nbr, **ix)                   # [V, K]
+        self._rev = torch.as_tensor(rev, **ix)                   # [V, K]
+        self.idx_i = torch.as_tensor(idx_i, **ix)
+        self.idx_j = torch.as_tensor(idx_j, **ix)
+        self._slot_i = self.idx_j - 1   # slot of j in i's list (i < j)
+        self._slot_j = self.idx_i       # slot of i in j's list
+        self._pair_id = torch.as_tensor(
+            pid[np.arange(v)[:, None], nbr], **ix)               # [V, K]
+        self._box = _box_bounds(ocfg, vcfg, dtype=dtype, device=self.device)
+        self.elastic_w = 1.0e7
+        self.cert_norm_bound = 0.95
+        self._loc_sizes = dict(x=5 * n, u=2 * (n - 1),
+                               lam=self.K * 4 * (n - 1),
+                               e=self.K * (n - 1))
+        self.lamb_bar_decay = float(lamb_bar_decay)
+        self.lamb_ij_relax = float(lamb_ij_relax)
+        self.local_prox = float(local_prox)
+        self.prox_after = int(prox_after)
+        self.prox_growth = float(prox_growth)
+        self.prox_tau_max = float(prox_tau_max)
+        self._local_staged = StagedNLP(self._loc_stage_f,
+                                       self._loc_stage_ce_link,
+                                       self._loc_stage_ce,
+                                       self._loc_stage_ci)
+        self._edge_staged = StagedNLP(self._edge_stage_f,
+                                      self._edge_stage_ce_link,
+                                      self._edge_stage_ce,
+                                      self._edge_stage_ci)
+        # block-Thomas solves made by this planner's staged solves (each
+        # solve covers all lanes of one NLP family at once)
+        self.block_solves = 0
+        # (state [V, 5], BarState) after the last step of run / run_scan,
+        # on the planner's device
+        self.carry = None
+
+    def _t(self, a):
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                               device=self.device)
+
+    # -- local problem (ref optimizer.py:40-201) -------------------------
+
+    def _loc_split(self, x):
+        """Dense local vector(s) ``[..., nx]`` -> states [..., N, 5],
+        controls [..., N-1, 2], duals [..., K, N-1, 4], slacks [..., K, N-1]."""
+        n = self.ocfg.horizon
+        s = self._loc_sizes
+        lead = x.shape[:-1]
+        o1 = s["x"]
+        o2 = o1 + s["u"]
+        o3 = o2 + s["lam"]
+        xs = x[..., :o1].reshape(lead + (n, 5))
+        us = x[..., o1:o2].reshape(lead + (n - 1, 2))
+        lam = x[..., o2:o3].reshape(lead + (self.K, n - 1, 4))
+        e = x[..., o3:].reshape(lead + (self.K, n - 1))
+        return xs, us, lam, e
+
+    # staged local form: stage k = 0..N-2 holds w_k = [x_{k+1} (5) | u_k (2)
+    # | lam[:, k, :] (4K) | e[:, k] (K)]; dynamics are the only coupling rows
+
+    def _loc_stage_split(self, w):
+        k = self.K
+        return w[:5], w[5:7], w[7:7 + 4 * k].reshape(k, 4), w[7 + 4 * k:]
+
+    def _loc_to_staged(self, x):
+        """[V, nx] -> [V, N-1, b_loc]."""
+        xs, us, lam, e = self._loc_split(x)
+        v, t = x.shape[0], self.ocfg.horizon - 1
+        return torch.cat([xs[:, 1:], us,
+                          lam.movedim(2, 1).reshape(v, t, 4 * self.K),
+                          e.transpose(1, 2)], dim=-1)
+
+    def _loc_from_staged(self, w, init_state):
+        """[V, N-1, b_loc], init [V, 5] -> [V, nx]."""
+        v, t, k = w.shape[0], w.shape[1], self.K
+        xs = torch.cat([init_state[:, None], w[..., :5]], dim=1)
+        us = w[..., 5:7]
+        lam = w[..., 7:7 + 4 * k].reshape(v, t, k, 4).movedim(1, 2)
+        e = w[..., 7 + 4 * k:].transpose(1, 2)
+        return torch.cat([xs.reshape(v, -1), us.reshape(v, -1),
+                          lam.reshape(v, -1), e.reshape(v, -1)], dim=-1)
+
+    def _loc_stage_f(self, w, pk):
+        xs, us, lam, e = self._loc_stage_split(w)
+        obj = (self.ocfg.r_ctrl * torch.sum(us ** 2)
+               + self.ocfg.q_state * torch.sum((xs - pk["ref"]) ** 2))
+        s_full = torch.cat([xs, lam.reshape(-1)])
+        obj = obj + pk["lamb_bar"] @ s_full
+        obj = obj + pk["rho"] / 2 * torch.sum((s_full - pk["z_bar"]) ** 2)
+        obj = obj + self.elastic_w * torch.sum(e)
+        if self.local_prox:
+            obj = obj + pk["prox_tau"] / 2 * torch.sum((w - pk["w_prev"]) ** 2)
+        return obj
+
+    def _loc_stage_ce_link(self, w_prev, w, pk):
+        xs, us, _, _ = self._loc_stage_split(w)
+        xp = torch.where(pk["first"] > 0, pk["init"], w_prev[:5])
+        return xs - (xp + self.vcfg.dt * bicycle_rhs(xp, us, self.vcfg))
+
+    def _loc_stage_ce(self, w, pk):
+        xs, _, lam, _ = self._loc_stage_split(w)
+        a_self, _ = halfspaces(xs, self.vcfg, self.ocfg.use_delay_tightening)
+        at_l = torch.einsum('ij,ki->kj', a_self, lam)             # [K, 2]
+        other = torch.einsum('kij,ki->kj', pk["other_a"], pk["other_lij"])
+        return (pk["mask"][:, None] * (at_l + other)).reshape(-1)
+
+    def _loc_stage_ci(self, w, pk):
+        xs, us, lam, e = self._loc_stage_split(w)
+        a_self, b_self = halfspaces(xs, self.vcfg,
+                                    self.ocfg.use_delay_tightening)
+        sep = (-torch.einsum('i,ki->k', b_self, lam)
+               - torch.einsum('ki,ki->k', pk["other_b"], pk["other_lij"])
+               - self.ocfg.min_dis + e)
+        sep = pk["mask"] * sep + (1.0 - pk["mask"])
+        at_l = torch.einsum('ij,ki->kj', a_self, lam)
+        nrm = 1.0 - torch.sum(at_l ** 2, dim=-1)
+        boxes = _box_residuals(xs, us, self._box)
+        return torch.cat([sep, nrm, lam.reshape(-1), e, boxes])
+
+    def _neighbour_data(self, bs: BarState):
+        """What each vehicle reads of its neighbours (ref optimizer.py:
+        107-118): halfspaces [V, K, N-1, 4, 2], [V, K, N-1, 4] and the
+        neighbours' duals against it [V, K, N-1, 4]."""
+        return (bs.a_mat[self._nbr], bs.b[self._nbr],
+                bs.lamb_ij[self._nbr, self._rev])
+
+    def _local_staged_params(self, bs: BarState, init_state, ref_win, rho,
+                             mask_veh):
+        """Per-(vehicle, stage) parameters ``[V, N-1, ...]`` of the staged
+        local solves."""
+        v, t = self.num_veh, self.ocfg.horizon - 1
+        other_a, other_b, other_lij = self._neighbour_data(bs)
+        first = torch.zeros((t,), dtype=self.dtype, device=self.device)
+        first[0] = 1.0
+        return dict(
+            first=first.expand(v, t),
+            init=init_state[:, None, :].expand(v, t, 5),
+            ref=ref_win[:, 1:, :],
+            z_bar=bs.z_bar,
+            lamb_bar=bs.lamb_bar,
+            other_a=other_a.movedim(2, 1),                  # [V, T, K, 4, 2]
+            other_b=other_b.movedim(2, 1),
+            other_lij=other_lij.movedim(2, 1),
+            mask=mask_veh[:, None, :].expand(v, t, self.K),
+            rho=rho.expand(v, t))
+
+    def _local_warm(self, ref_win, bs: BarState, mask_veh):
+        """All-vehicle reference warm start ``[V, nx]`` (states = ref
+        window, u = 0, lambda = 1 as in ``local_initialize``
+        ``optimizer.py:50-55``) plus elastic slacks set to the actual
+        separation violation — the separation rows of the JAX
+        ``_local_ci`` at that point — so the start point is feasible."""
+        s = self._loc_sizes
+        v = self.num_veh
+        _, other_b, other_lij = self._neighbour_data(bs)
+        x0 = torch.cat([
+            ref_win.reshape(v, -1),
+            torch.zeros((v, s["u"]), dtype=self.dtype, device=self.device),
+            torch.ones((v, s["lam"]), dtype=self.dtype, device=self.device),
+            torch.zeros((v, s["e"]), dtype=self.dtype, device=self.device)],
+            dim=-1)
+        xs, _, lam, e = self._loc_split(x0)
+        _, b_self = halfspaces(xs[:, 1:], self.vcfg,
+                               self.ocfg.use_delay_tightening)
+        sep = (-torch.einsum('vti,vkti->vkt', b_self, lam)
+               - torch.einsum('vkti,vkti->vkt', other_b, other_lij)
+               - self.ocfg.min_dis + e)
+        m = mask_veh[:, :, None]
+        sep = m * sep + (1.0 - m)
+        e_warm = torch.clamp(-sep, min=0.0) + 0.01
+        return torch.cat([x0[:, :-s["e"]], e_warm.reshape(v, -1)], dim=-1)
+
+    # -- edge problem (ref optimizer.py:239-328), staged per horizon step --
+
+    def _edge_lam(self, z):
+        """Per-vehicle per-slot duals from the consensus row: [V, K, N-1, 4]."""
+        n = self.ocfg.horizon
+        lam = z[:, :, 5:].reshape(self.num_veh, n - 1, self.K, 4)
+        return lam.movedim(1, 2)
+
+    def _edge_lam_t(self, z):
+        """[V, F] one-step consensus row -> [V, K, 4] duals."""
+        return z[:, 5:].reshape(self.num_veh, self.K, 4)
+
+    # staged edge: stage = horizon step, NO link rows (the edge problem is
+    # temporally separable) — block-diagonal KKT, one shared line search
+
+    def _edge_stage_f(self, w, pk):
+        z = w.reshape(self.num_veh, self.N_FULL)
+        return (-torch.sum(z * pk["lamb_bar"])
+                + pk["rho"] / 2 * torch.sum((pk["local_fullx"] - z) ** 2))
+
+    def _edge_stage_ce_link(self, w_prev, w, pk):
+        return torch.zeros((0,), dtype=w.dtype, device=w.device)
+
+    def _edge_stage_ce(self, w, pk):
+        z = w.reshape(self.num_veh, self.N_FULL)
+        a_mat, _ = halfspaces(z[:, :5], self.vcfg,
+                              self.ocfg.use_delay_tightening)
+        at_l = torch.einsum('vij,vki->vkj', a_mat, self._edge_lam_t(z))
+        rows = (at_l[self.idx_i, self._slot_i]
+                + at_l[self.idx_j, self._slot_j])               # [P, 2]
+        return (pk["pair_mask"][:, None] * rows).reshape(-1)
+
+    def _edge_stage_ci(self, w, pk):
+        z = w.reshape(self.num_veh, self.N_FULL)
+        a_mat, b = halfspaces(z[:, :5], self.vcfg,
+                              self.ocfg.use_delay_tightening)
+        lam = self._edge_lam_t(z)
+        bl = torch.einsum('vi,vki->vk', b, lam)
+        sep = (-bl[self.idx_i, self._slot_i]
+               - bl[self.idx_j, self._slot_j] - self.ocfg.min_dis)
+        sep = pk["pair_mask"] * sep + (1.0 - pk["pair_mask"])
+        at_l = torch.einsum('vij,vki->vkj', a_mat, lam)
+        nrm = self.cert_norm_bound ** 2 - torch.sum(at_l ** 2, dim=-1)
+        zs = z[:, :5]
+        box = torch.cat([(zs + 1000.0).reshape(-1),
+                         (1000.0 - zs).reshape(-1)])
+        return torch.cat([sep, nrm.reshape(-1), z[:, 5:].reshape(-1), box])
+
+    # -- bar-state plumbing ----------------------------------------------
+
+    def _facing_certificates(self, ref0):
+        """Unit-weight facing-face separating duals per (vehicle, slot):
+        [V, K, N-1, 4], scaled to norm 0.95 (see ``create_bar_state``)."""
+        a0, _ = halfspaces(ref0, self.vcfg, self.ocfg.use_delay_tightening)
+        pos = ref0[:, :, :2]                                   # [V, N-1, 2]
+        c_dir = pos[self._nbr] - pos[:, None]                  # [V, K, N-1, 2]
+        c_dir = c_dir / torch.clamp(
+            torch.linalg.norm(c_dir, dim=-1, keepdim=True), min=1e-9)
+        align = torch.einsum('vtij,vktj->vkti', a0, c_dir)     # [V, K, N-1, 4]
+        # torch.argmax returns the first maximal index on ties, as JAX does
+        face = torch.nn.functional.one_hot(torch.argmax(align, dim=-1), 4)
+        return self.cert_norm_bound * face.to(self.dtype)
+
+    def _zip_z(self, local_x, lamb_ij):
+        """Pack (states [V, N-1, 5], duals [V, K, N-1, 4]) into Z [V, N-1, F]."""
+        v, t = local_x.shape[0], local_x.shape[1]
+        lam_flat = lamb_ij.movedim(1, 2).reshape(v, t, 4 * self.K)
+        return torch.cat([local_x, lam_flat], dim=-1)
+
+    def create_bar_state(self) -> BarState:
+        """Initial exchange state, seeded from the reference-trajectory
+        window so the first local NLP is well-posed (the JAX version's
+        documented deviation from the reference's zero A/b)."""
+        v, n = self.num_veh, self.ocfg.horizon
+        ref0 = self.refs[:, 1:n, :]                      # [V, N-1, 5]
+        a0, b0 = halfspaces(ref0, self.vcfg, self.ocfg.use_delay_tightening)
+        if self.lamb_ij_mode == "track_edge":
+            lamb_ij = self._facing_certificates(ref0)
+        elif v == 2 and n == 8:
+            lamb_ij = self._t(_LAMB_IJ_TABLE)[:, None]
+        else:
+            lamb_ij = 1e-3 * torch.ones((v, self.K, n - 1, 4),
+                                        dtype=self.dtype, device=self.device)
+        return BarState(
+            z_bar=self._zip_z(ref0, lamb_ij), a_mat=a0, b=b0,
+            lamb_bar=1e-3 * torch.ones((v, n - 1, self.N_FULL),
+                                       dtype=self.dtype, device=self.device),
+            lamb_ij=lamb_ij, local_x=ref0)
+
+    def shift_bar_state(self, bs: BarState) -> BarState:
+        """Horizon warm-start shift (ref ``iterate_next_state``
+        ``optimizer.py:337-344``): drop step 0, duplicate the tail."""
+        def shift(a, axis):
+            return torch.cat([a.narrow(axis, 1, a.shape[axis] - 1),
+                              a.narrow(axis, a.shape[axis] - 1, 1)], dim=axis)
+        return BarState(
+            z_bar=shift(bs.z_bar, 1), a_mat=shift(bs.a_mat, 1),
+            b=shift(bs.b, 1), lamb_bar=shift(bs.lamb_bar, 1),
+            lamb_ij=shift(bs.lamb_ij, 2), local_x=shift(bs.local_x, 1))
+
+    def _pair_proximity_mask(self, local_x):
+        """[P] activity mask: pair within ``gate_thres`` anywhere in horizon."""
+        if not self.gate_pairs:
+            return torch.ones((len(self.idx_i),), dtype=self.dtype,
+                              device=self.device)
+        pos = local_x[:, :, :2]
+        d2 = torch.sum((pos[self.idx_i] - pos[self.idx_j]) ** 2, dim=-1)
+        return torch.any(d2 < self.gate_thres ** 2, dim=-1).to(self.dtype)
+
+    def check_converge(self, bs: BarState, thres: float = 0.1):
+        """Coupled-constraint satisfaction on the exchanged solution
+        (ref ``check_converge`` ``optimizer.py:225-235``), all pairs; a
+        0-dim bool tensor on the planner's device."""
+        at_l = torch.einsum('vtij,vkti->vktj', bs.a_mat, bs.lamb_ij)
+        eq = (at_l[self.idx_i, self._slot_i]
+              + at_l[self.idx_j, self._slot_j])                # [P, N-1, 2]
+        bl = torch.einsum('vti,vkti->vkt', bs.b, bs.lamb_ij)
+        sep = (-bl[self.idx_i, self._slot_i]
+               - bl[self.idx_j, self._slot_j])                 # [P, N-1]
+        return torch.logical_and(torch.all(torch.abs(eq) <= thres),
+                                 torch.all(sep >= self.ocfg.min_dis))
+
+    # -- one MPC step -----------------------------------------------------
+
+    def _ref_window(self, step_idx: int):
+        """refs[:, k:k+N] with the start clamped in bounds, as
+        ``lax.dynamic_slice_in_dim`` clamps it."""
+        n = self.ocfg.horizon
+        start = min(max(int(step_idx), 0), self.refs.shape[1] - n)
+        return self.refs[:, start:start + n]
+
+    def _prox_tau(self, it: int) -> float:
+        """Annealed local prox weight of ADMM iteration ``it``."""
+        if it < self.prox_after:
+            return 0.0
+        return min(self.local_prox * self.prox_growth ** (it - self.prox_after),
+                   self.prox_tau_max)
+
+    def _local_solve(self, bs: BarState, init_state, ref_win, rho, x_prev,
+                     mask_veh, prox_tau: float):
+        v, t = self.num_veh, self.ocfg.horizon - 1
+        if self.local_warm_mode == "previous":
+            x0 = x_prev
+        else:
+            # reference semantics: re-initialize from the reference
+            # trajectory every iteration (local_initialize :50-55)
+            x0 = self._local_warm(ref_win, bs, mask_veh)
+        sp = self._local_staged_params(bs, init_state, ref_win, rho, mask_veh)
+        if self.local_prox:
+            sp["w_prev"] = self._loc_to_staged(x_prev)
+            sp["prox_tau"] = torch.full((v, t), prox_tau, dtype=self.dtype,
+                                        device=self.device)
+        lsol = solve_staged(self._local_staged, self._loc_to_staged(x0), sp,
+                            self.scfg)
+        self.block_solves += lsol.block_solves
+        x_out = self._loc_from_staged(lsol.w, init_state)
+        xs, us, lam, _ = self._loc_split(x_out)
+        health = (torch.mean(lsol.converged.to(self.dtype)),
+                  torch.max(lsol.kkt_error))
+        return xs, us, lam, x_out, health
+
+    def _edge_solve(self, bs: BarState, local_fullx, rho, pair_mask):
+        """The edge consensus NLP as one staged lane (stages = steps)."""
+        t, v = self.ocfg.horizon - 1, self.num_veh
+        pe = dict(lamb_bar=bs.lamb_bar.movedim(1, 0),
+                  local_fullx=local_fullx.movedim(1, 0),
+                  rho=rho.expand(t),
+                  pair_mask=pair_mask.expand((t,) + pair_mask.shape))
+        z0 = bs.z_bar.movedim(1, 0).reshape(t, -1)
+        esol = solve_staged(self._edge_staged, z0[None],
+                            {k: a[None] for k, a in pe.items()}, self.scfg)
+        self.block_solves += esol.block_solves
+        z_bar = esol.w[0].reshape(t, v, self.N_FULL).movedim(0, 1)
+        return z_bar, esol
+
+    def _admm_iteration(self, c: dict, it: int, init_state, ref_win, rho):
+        """One ADMM iteration: staged local NLPs -> bar-state broadcast ->
+        staged edge NLP -> certificate exchange -> dual update."""
+        ocfg = self.ocfg
+        bs = c["bs"]
+        pair_mask = self._pair_proximity_mask(bs.local_x)
+        mask_veh = pair_mask[self._pair_id]                    # [V, K]
+        xs, us, lam, loc_x, loc_health = self._local_solve(
+            bs, init_state, ref_win, rho, c["loc_x"], mask_veh,
+            self._prox_tau(it))
+        # bar_state_update (ref optimizer.py:205-222)
+        a_new, b_new = halfspaces(xs[:, 1:, :], self.vcfg,
+                                  ocfg.use_delay_tightening)
+        lamb_ij = lam if self.lamb_ij_mode == "track_local" else bs.lamb_ij
+        bs = bs._replace(a_mat=a_new, b=b_new, local_x=xs[:, 1:, :],
+                         lamb_ij=lamb_ij)
+        # edge solve, warm-started at the previous consensus iterate
+        local_fullx = self._zip_z(bs.local_x, bs.lamb_ij)
+        z_bar, esol = self._edge_solve(bs, local_fullx, rho, pair_mask)
+        bs = bs._replace(z_bar=z_bar)
+        if self.lamb_ij_mode == "track_edge":
+            # neighbours plan against the (relaxed) consensus certificates
+            th = self.lamb_ij_relax
+            bs = bs._replace(lamb_ij=th * self._edge_lam(z_bar)
+                             + (1.0 - th) * bs.lamb_ij)
+        # dual update on lamb_bar: consensus error r = local_fullx - z_bar
+        pos = bs.local_x[:, :, :2]
+        d_min = torch.min(torch.linalg.norm(
+            pos[self.idx_i] - pos[self.idx_j], dim=-1))
+        cons_err = local_fullx - z_bar
+        dual_rho = ocfg.rho if ocfg.dual_rho is None else ocfg.dual_rho
+        dual_new = update_dual(
+            DualState(dual=bs.lamb_bar, sum_err=c["sum_err"],
+                      diff_val=c["diff_val"],
+                      rho=torch.tensor(dual_rho, dtype=self.dtype,
+                                       device=self.device)),
+            cons_err, d_min, self.dual_cfg)
+        bs = bs._replace(lamb_bar=dual_new.dual)
+        # the actual consensus gap ||local - z||_1 beside the change-based
+        # residuals of the reference (driver :82-90)
+        gap = torch.sum(torch.abs(cons_err))
+        primal = torch.sum(torch.abs(us - c["us_prev"]))
+        dual = (torch.sum(torch.abs(bs.lamb_bar - c["lamb_prev"]))
+                / torch.clamp(dual_new.rho, min=1.0))
+        t_scale = (self.num_veh / 2.0) if ocfg.thres_per_veh else 1.0
+        done = torch.logical_and(primal <= ocfg.primal_thres * t_scale,
+                                 dual <= ocfg.dual_thres * t_scale)
+        nlp_ok = torch.stack([loc_health[0],
+                              torch.mean(esol.converged.to(self.dtype))])
+        nlp_kkt = torch.stack([loc_health[1], torch.max(esol.kkt_error)])
+        return dict(bs=bs, us_prev=us, lamb_prev=bs.lamb_bar, xs=xs,
+                    loc_x=loc_x, nlp_ok=nlp_ok, nlp_kkt=nlp_kkt,
+                    sum_err=dual_new.sum_err, diff_val=dual_new.diff_val,
+                    done=done, primal=primal, dual=dual, gap=gap)
+
+    def _mpc_step(self, init_state, bar_state_prev: BarState, step_idx: int):
+        """One MPC step: the ADMM loop until both residuals are under their
+        thresholds or ``max_admm_iters`` is reached, then the MPC advance.
+
+        Returns ``(next_state [V, 5], shifted BarState, iterations (int),
+        primal, dual, converged_flag, nlp_ok [2], nlp_kkt [2], gap)``; every
+        tensor stays on the planner's device.
+        """
+        ocfg = self.ocfg
+        v, n = self.num_veh, ocfg.horizon
+        ref_win = self._ref_window(step_idx)                   # [V, N, 5]
+        rho = torch.tensor(ocfg.rho, dtype=self.dtype, device=self.device)
+        kw = dict(dtype=self.dtype, device=self.device)
+        inf = torch.tensor(math.inf, **kw)
+        zeros_f = torch.zeros((v, n - 1, self.N_FULL), **kw)
+        mask0 = self._pair_proximity_mask(bar_state_prev.local_x)[
+            self._pair_id]
+        c = dict(bs=bar_state_prev, us_prev=torch.zeros((v, n - 1, 2), **kw),
+                 lamb_prev=bar_state_prev.lamb_bar, xs=ref_win,
+                 loc_x=self._local_warm(ref_win, bar_state_prev, mask0),
+                 sum_err=zeros_f, diff_val=zeros_f,
+                 nlp_ok=torch.ones((2,), **kw),
+                 nlp_kkt=torch.zeros((2,), **kw),
+                 primal=inf, dual=inf, gap=inf)
+        it = 0
+        while it < ocfg.max_admm_iters:
+            c = self._admm_iteration(c, it, init_state, ref_win, rho)
+            it += 1
+            if bool(c["done"]):           # the one host read per iteration
+                break
+        # MPC advance from the converged/capped carry (driver :99-102)
+        next_state = c["xs"][:, 1, :]
+        converged_flag = self.check_converge(c["bs"])
+        bs = c["bs"]
+        if self.lamb_bar_decay != 1.0:
+            bs = bs._replace(lamb_bar=self.lamb_bar_decay * bs.lamb_bar)
+        return (next_state, self.shift_bar_state(bs), it, c["primal"],
+                c["dual"], converged_flag, c["nlp_ok"], c["nlp_kkt"], c["gap"])
+
+    def _n_steps(self, n_steps):
+        total = int(self.vcfg.T / self.vcfg.dt - self.ocfg.horizon)
+        return total if n_steps is None else n_steps
+
+    def run_scan(self, n_steps: Optional[int] = None,
+                 return_health: bool = False):
+        """Whole MPC run with the (state, BarState) carry on the device;
+        returns host arrays ``(states [n+1, V, 5], iters [n], primal [n],
+        dual [n], conv [n])``, plus ``(nlp_ok [n, 2], nlp_kkt [n, 2],
+        gap [n])`` when ``return_health`` — the JAX ``run_scan``'s outputs."""
+        n_steps = self._n_steps(n_steps)
+        st = self.refs[:, 0, :]
+        bs = self.create_bar_state()
+        rows = []
+        for k in range(n_steps):
+            st, bs, it, pr, du, cv, ok, kkt, gap = self._mpc_step(st, bs, k)
+            rows.append((st, it, pr, du, cv, ok, kkt, gap))
+        self.carry = (st, bs)
+        states = torch.stack([self.refs[:, 0, :]] + [r[0] for r in rows])
+        host = [torch.stack([r[i] for r in rows]).cpu().numpy() if rows
+                else np.zeros((0,)) for i in (2, 3, 4, 5, 6, 7)]
+        its = np.asarray([r[1] for r in rows], dtype=np.int32)
+        out = (states.cpu().numpy(), its, host[0], host[1], host[2])
+        if return_health:
+            out += (host[3], host[4], host[5])
+        return out
+
+    def run(self, n_steps: Optional[int] = None, step_timer=None,
+            checkpoint_path: Optional[str] = None, resume: bool = False):
+        """MPC loop returning ``(states, iters, residuals, flags)`` as the
+        JAX ``run`` does; each residual row is ``(primal, dual,
+        loc_conv_frac, edge_conv_frac, loc_kkt_max, edge_kkt_max, gap)``:
+        the JAX row plus the actual consensus gap ``||local - z||_1``.
+
+        ``step_timer``, a context-manager factory such as
+        ``RunMetrics.step_timer``, wraps each step (its host reads included,
+        so the time covers the device work).
+        """
+        if checkpoint_path is not None or resume:
+            raise NotImplementedError(
+                "checkpoint/resume is not ported yet (ROADMAP.md queue 1, "
+                "item 'mpc/driver.py and the utilities')")
+        timer = step_timer or contextlib.nullcontext
+        n_steps = self._n_steps(n_steps)
+        init_state = self.refs[:, 0, :]
+        bs = self.create_bar_state()
+        states = [init_state.cpu().numpy()]
+        iters, residuals, flags = [], [], []
+        for t in range(n_steps):
+            with timer():
+                (init_state, bs, it, pr, du, cv, nlp_ok, nlp_kkt,
+                 gap) = self._mpc_step(init_state, bs, t)
+                states.append(init_state.cpu().numpy())
+            iters.append(int(it))
+            ok, kk = nlp_ok.cpu().numpy(), nlp_kkt.cpu().numpy()
+            residuals.append((float(pr), float(du), float(ok[0]),
+                              float(ok[1]), float(kk[0]), float(kk[1]),
+                              float(gap)))
+            flags.append(bool(cv))
+        self.carry = (init_state, bs)
+        return np.stack(states), np.array(iters), residuals, flags

@@ -1,26 +1,46 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives ``dlp_admm_torch`` (never JAX) through its main path and checks it:
+Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
 
 1. device: a CUDA card is required; prints its name and power limit;
-2. build: compiles the block-Thomas kernel (``dlp_admm_torch/csrc/``) for
-   ``sm_90a`` with ``nvcc`` and prints the build time;
-3. kernel vs plain version on the card, float64 and float32, at
-   (S, T, B) = (2, 7, 19), (1, 7, 20), (32, 7, 19), (256, 7, 19), on
-   diagonally dominant, KKT-style saddle and zero-leading-block saddle
-   systems made with numpy from a fixed seed (tolerances below);
-4. the slice: ``dlp_admm_torch.mpc.run_obca(Formulation.CONSENSUS, ...)``
-   on the card in float64 with the flagship profile, first 6 MPC steps,
-   held against the committed JAX run ``tests/data/consensus_obca_f64_ref.npz``
-   (states within 1e-6, equal ADMM iteration counts), with the kernel's
-   launch count equal to the staged solver's block-solve count; then the
-   kernel against its plain version on the KKT blocks captured from the
-   run's first local and edge IP trips;
-5. ``--full``: all 42 steps, gated on the pins of
-   ``tests/test_flagship_convergence.py``.
+2. build: compiles the two block-Thomas kernels (``dlp_admm_torch/csrc/``:
+   ``warp``, one warp per system for B <= 32, built once per element type,
+   and ``wide``, one block per system above that) for ``sm_90a``, one
+   ``nvcc`` per library, side by side; prints the build time and what
+   ``ptxas`` says, and fails if the warp kernel at the flagship's width
+   bound spills registers;
+3. kernel vs plain version on the card, float64 and float32, plain and
+   equilibrated, at (S, T, B) = (2, 7, 19), (1, 7, 20), (32, 7, 19),
+   (256, 7, 19) (warp kernel, and the wide kernel forced onto the same
+   shapes) and (4, 7, 43), (2, 7, 61) (wide kernel), on diagonally dominant,
+   KKT-style saddle, zero-leading-block saddle and (equilibrated only) badly
+   scaled systems made with numpy from a fixed seed (tolerances below);
+   per shape the device time of both kernels in turns, of the plain version
+   and of one ``torch.linalg.solve`` on the assembled dense matrix (a
+   yardstick the port never calls), beside the roofline bound;
+4. the float64 slice: ``dlp_admm_torch.mpc.run_obca(Formulation.CONSENSUS)``
+   on the card with the flagship's float64 profile, first 6 MPC steps, held
+   against the committed JAX run ``tests/data/consensus_obca_f64_ref.npz``
+   (states within 1e-6, equal ADMM iteration counts), with the kernels'
+   launch count equal to the staged solver's block-solve count;
+5. the float32 slice: the same entry point with ``dtype=torch.float32`` and
+   the flagship's float32 profile, held against
+   ``tests/data/consensus_obca_f32_ref.npz`` (tolerance below);
+6. the multi-vehicle path: one MPC step of 4 vehicles in float64 and of 3
+   vehicles in float32 (KKT widths 33/80 and 26/45, which the wide kernel
+   and the warp kernel's 32-wide build solve), each held against the same
+   step run on the kernels' plain version;
+7. the kernels against their plain version on the KKT blocks those runs
+   gave them (by solution and by backward error), timed as in 3;
+8. ``--full``: all 42 steps of both profiles. The run fails on the gates
+   that hold whichever branch the chaotic conflict window takes (42 steps,
+   finite states, overtake completed, footprints apart by more than
+   ``min_dis``, at least 39 of 42 steps under the residual thresholds); the
+   other pins of ``tests/test_flagship_convergence.py`` are printed.
 
-Prints, before the last line, one JSON object with the kernel's numbers and
-the ``nvidia-smi`` name and power limit; the last line is
+Every path is driven with the launch counts set to 0 just before and read
+just after. Prints, before the last line, one JSON object with the kernels'
+numbers and the ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0) and
 prints no result.
 
@@ -29,6 +49,7 @@ Usage: python3 chip_smoke.py [--full] [--out PATH.json]
 import argparse
 import json
 import os
+import re
 import subprocess
 import time
 
@@ -36,15 +57,51 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FIXTURE = os.path.join(ROOT, "tests", "data", "consensus_obca_f64_ref.npz")
-SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (256, 7, 19))
+DATA = os.path.join(ROOT, "tests", "data")
+FIXTURE = os.path.join(DATA, "consensus_obca_f64_ref.npz")
+FIXTURE_F32 = os.path.join(DATA, "consensus_obca_f32_ref.npz")
+SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (256, 7, 19))   # B <= 32
+WIDE_SHAPES = ((4, 7, 43), (2, 7, 61))                         # B > 32
+KINDS = ("diag_dominant", "kkt_saddle", "zero_lead")
+EQ_KINDS = KINDS + ("badly_scaled",)
+# (kind, equilibrate): the badly scaled kind is what equilibration is for;
+# unequilibrated, kernel and plain version each lose it in their own way
+VARIANTS = tuple((k, False) for k in KINDS) + tuple((k, True)
+                                                    for k in EQ_KINDS)
 # kernel vs plain version: both run the same recursion with the same pivot
-# choice and pivot floor; only the order of summation inside each product
-# differs, so the gap is rounding amplified by the blocks' conditioning
+# choice, pivot floor, scaling and refinement; only the order of summation
+# inside each product differs (and fused multiply-adds), so the gap is
+# rounding amplified by the blocks' conditioning
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+# ... and on the KKT systems the planner's runs gave the kernels. In float32
+# those are conditioned near 1 / eps (multiplier diagonals of -1e-8 beside
+# prox curvature of 1e3 and more), so two eliminations that differ only in
+# the order of rounding agree to their condition number times 6e-8 (5e-4 on
+# the flagship's first local system). The staged solver does not lean on
+# that: it refines every solve twice against the residual. So there the
+# kernel is also held to the plain version's backward error.
+RUN_TOL = {torch.float64: 1e-10, torch.float32: 5e-3}
 STATE_TOL = 1e-6            # port vs JAX fixture, float64 states
+# float32 slice vs the JAX float32 run: both stop each MPC step's ADMM loop
+# once two change-based residuals are under 0.01, from iterates that carry
+# float32 rounding through hundreds of IP trips, so they stop at different
+# iterates within that threshold of one fixed point (and not always after
+# the same number of iterations). Positions and speeds (up to 80 m, 20 m/s)
+# then agree to about 1e-3; the port on the CPU is 1.6e-3 from the same run.
+STATE_TOL_F32 = 1e-2
 SMOKE_STEPS = 6
 DEVICE = "cuda"
+# NVIDIA H100 SXM data sheet: HBM3 rate and the vector (non-tensor-core)
+# peaks; FP64 vector is half the FP32 rate
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float64: 33.5e12, torch.float32: 67.0e12}
+REPLACES = "dlp_admm_tpu/solvers/thomas_pallas.py:145"
+# the 42-step float64 run of the block-per-system kernel the port began
+# with (NVIDIA H100 80GB HBM3, 700 W), printed beside --full
+EARLIER_FULL_F64 = dict(res_ok=42, mean_iterations=16.0,
+                        min_distance_m=3.443, min_footprint_gap_m=0.251,
+                        health=0.929, gap_median=0.0085, gap_max=0.373,
+                        wall_s=409.6, iterations_per_s=1.643)
 
 
 def log(*a):
@@ -58,9 +115,6 @@ def nvidia_smi():
         check=True, timeout=60).stdout.strip()
 
 
-KINDS = ("diag_dominant", "kkt_saddle", "zero_lead")
-
-
 def dump(path, records):
     if path:
         with open(path, "w") as f:
@@ -71,7 +125,9 @@ def make_system(rng, s, t, b, kind):
     """Symmetric block-tridiagonal [S, T, B, B] / upper / rhs (numpy f64):
     ``diag_dominant``; ``kkt_saddle``, KKT-style blocks (H, J^T; J, -eps I);
     ``zero_lead``, the same saddle with the constraint rows first and a zero
-    (1, 1) block, which only an elimination that swaps rows can factor."""
+    (1, 1) block, which only an elimination that swaps rows can factor;
+    ``badly_scaled``, the saddle with rows of 1e6 beside rows of 1, for the
+    equilibrated variant."""
     if kind == "diag_dominant":
         diag = rng.normal(size=(s, t, b, b))
         diag = 0.5 * (diag + np.swapaxes(diag, -1, -2)) + (b + 2.0) * np.eye(b)
@@ -81,17 +137,75 @@ def make_system(rng, s, t, b, kind):
         n = b - m
         r = rng.normal(size=(s, t, n, n))
         j = rng.normal(size=(s, t, m, n))
-        h, c = (slice(0, n), slice(n, b)) if kind == "kkt_saddle" \
-            else (slice(m, b), slice(0, m))
+        h, c = (slice(m, b), slice(0, m)) if kind == "zero_lead" \
+            else (slice(0, n), slice(n, b))
+        hess = r @ np.swapaxes(r, -1, -2) + np.eye(n)
+        if kind == "badly_scaled":
+            # every other primal row and column carries 1e3: curvature of
+            # 1e6 beside constraint rows of 1 and multiplier diagonals of
+            # -1e-8, as the annealed prox makes the planner's stage blocks
+            sc = np.where(np.arange(n) % 2 == 0, 1.0e3, 1.0)
+            hess = hess * sc[:, None] * sc[None, :]
         diag = np.zeros((s, t, b, b))
-        diag[..., h, h] = r @ np.swapaxes(r, -1, -2) + np.eye(n)
+        diag[..., h, h] = hess
         diag[..., h, c] = np.swapaxes(j, -1, -2)
         diag[..., c, h] = j
-        diag[..., c, c] = -1e-8 * np.eye(m) if kind == "kkt_saddle" else 0.0
+        diag[..., c, c] = 0.0 if kind == "zero_lead" else -1e-8 * np.eye(m)
         upper = np.zeros((s, t, b, b))
         upper[..., h, h] = 0.1 * rng.normal(size=(s, t, n, n))
     upper[:, t - 1] = 0.0
     return diag, upper, rng.normal(size=(s, t, b))
+
+
+def thomas_work(s, t, b, elem, equilibrate):
+    """(bytes, floating-point operations) one solve of ``S`` systems needs:
+    every input read once (the T-1 used blocks of ``upper``) and the output
+    written once; per stage the Gauss-Jordan updates right of each pivot on
+    ``[C | U | g]`` (the last stage has no U columns), the products
+    ``U^T [X | y]`` between stages and the back substitution; equilibrated,
+    also the scaling, the residual and the second elimination of its B+1
+    (last stage: 1) columns."""
+    n_bytes = elem * s * (t * b * b + (t - 1) * b * b + 2 * t * b)
+    flops = 0
+    for k in range(t):
+        extra = (b if k < t - 1 else 0) + 1     # columns right of C
+        flops += sum(2 * b * (b - 1 - j + extra) for j in range(b))
+        if equilibrate:
+            flops += 3 * b * (b + extra)            # D C D, D [U | g], D Y
+            flops += 2 * b * b * extra              # residual
+            flops += 2 * b * b * extra + b * extra  # multipliers again, Y + dY
+        if k < t - 1:
+            flops += 2 * b * b * (b + 1)            # U_k^T [X_k | y_k]
+            flops += 2 * b * b                      # z_k = y_k - X_k z_{k+1}
+    return n_bytes, s * flops
+
+
+def bound(s, t, b, dtype, equilibrate):
+    """The least time the card could take for one solve: the larger of bytes
+    over the memory rate and operations over the vector peak."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    n_bytes, flops = thomas_work(s, t, b, elem, equilibrate)
+    by_bytes = n_bytes / HBM_BYTES_PER_S
+    by_ops = flops / PEAK_FLOPS[dtype]
+    return dict(bound_ms=1e3 * max(by_bytes, by_ops),
+                bound_us=1e6 * max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes=n_bytes, flops=flops)
+
+
+def dense_system(diag, upper, rhs):
+    """The block-tridiagonal system as one dense ``[S, T B, T B]`` matrix
+    and ``[S, T B, 1]`` right-hand side (for the library yardstick)."""
+    s, t, b = rhs.shape
+    a = diag.new_zeros((s, t * b, t * b))
+    for k in range(t):
+        i = slice(k * b, (k + 1) * b)
+        a[:, i, i] = diag[:, k]
+        if k + 1 < t:
+            j = slice((k + 1) * b, (k + 2) * b)
+            a[:, i, j] = upper[:, k]
+            a[:, j, i] = upper[:, k].transpose(-1, -2)
+    return a, rhs.reshape(s, t * b, 1).clone()
 
 
 def time_ms(fn, reps):
@@ -126,47 +240,280 @@ def graph_ms(fn, reps=20):
     return time_ms(graph.replay, 5) / reps
 
 
-def compare(thomas, diag, upper, rhs, label, timed=False):
-    """Kernel vs plain version on the same card tensors; raises past TOL."""
-    got = thomas.block_thomas_solve(diag, upper, rhs)
-    want = thomas.block_thomas_plain(diag, upper, rhs)
+def timings(thomas, diag, upper, rhs, equilibrate):
+    """Device times of one solve: the kernel the wrapper picks (``ms``), the
+    block-per-system kernel forced onto the same call where the wrapper
+    picks the warp kernel (``wide_ms``; the two timed in turns: warp, wide,
+    wide, warp), the plain version, and the library yardstick."""
+    s, t, b = rhs.shape
+
+    def run(kernel):
+        return lambda: thomas.launch_kernel(diag, upper, rhs, equilibrate,
+                                            kernel)
+
+    name = thomas.kernel_plan(s, t, b, rhs.dtype, equilibrate)["kernel"]
+    row = {}
+    if name == "warp":
+        turns = [graph_ms(run(k)) for k in ("warp", "wide", "wide", "warp")]
+        row.update(ms=0.5 * (turns[0] + turns[3]),
+                   wide_ms=0.5 * (turns[1] + turns[2]), ms_turns=turns)
+    else:
+        row.update(ms=graph_ms(run("wide")))
+    row["us_per_pivot"] = 1e3 * row["ms"] / (t * b)
+    row["plain_ms"] = graph_ms(
+        lambda: thomas.block_thomas_plain(diag, upper, rhs, equilibrate),
+        reps=5)
+    a, r = dense_system(diag, upper, rhs)
+    # eager calls between two events: the solver's error check reads the
+    # device, which a stream capture does not allow
+    row["library_ms"] = time_ms(lambda: torch.linalg.solve(a, r), 20)
+    row.update(bound(s, t, b, rhs.dtype, equilibrate))
+    return row
+
+
+def backward_error(diag, upper, rhs, x):
+    """max |A x - r| / (|A| |x| + |r|) over rows and systems, in float64."""
+    a, r = dense_system(diag.double(), upper.double(), rhs.double())
+    xs = x.double().reshape(r.shape)
+    res = (a @ xs - r).abs() / (a.abs() @ xs.abs() + r.abs()).clamp(min=1e-300)
+    return float(res.max())
+
+
+def compare(thomas, diag, upper, rhs, label, equilibrate=False, kernel=None,
+            timed=False, run_block=False):
+    """Kernel vs plain version on the same card tensors; raises past TOL
+    (``run_block``: past RUN_TOL, or a backward error above 4 times the
+    plain version's and 10 units of rounding)."""
+    got = thomas.launch_kernel(diag, upper, rhs, equilibrate, kernel)
+    want = thomas.block_thomas_plain(diag, upper, rhs, equilibrate)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise RuntimeError(f"{label}: kernel output not finite")
     abs_err = float((got - want).abs().max())
     rel_err = abs_err / max(float(want.abs().max()), 1e-300)
-    row = dict(case=label, max_abs_err=abs_err, max_rel_err=rel_err,
-               tol=TOL[rhs.dtype])
+    tol = (RUN_TOL if run_block else TOL)[rhs.dtype]
+    s, t, b = rhs.shape
+    row = dict(case=label, shape=[s, t, b], dtype=str(rhs.dtype)[6:],
+               equilibrate=equilibrate,
+               kernel=kernel or thomas.kernel_plan(
+                   s, t, b, rhs.dtype, equilibrate)["kernel"],
+               max_abs_err=abs_err, max_rel_err=rel_err, tol=tol)
+    if run_block:
+        row.update(
+            backward_err=backward_error(diag, upper, rhs, got),
+            plain_backward_err=backward_error(diag, upper, rhs, want))
     if timed:
-        def kernel():
-            thomas.block_thomas_solve(diag, upper, rhs)
-
-        def plain():
-            thomas.block_thomas_plain(diag, upper, rhs)
-
-        row.update(ms=graph_ms(kernel), plain_ms=graph_ms(plain),
-                   eager_ms=time_ms(kernel, 50),
-                   plain_eager_ms=time_ms(plain, 5))
+        row.update(timings(thomas, diag, upper, rhs, equilibrate))
     log(json.dumps(row))
-    if not rel_err <= TOL[rhs.dtype]:
+    if not rel_err <= tol:
         raise RuntimeError(f"{label}: kernel vs plain rel err {rel_err:.3e} "
-                           f"> {TOL[rhs.dtype]:.0e}")
+                           f"> {tol:.0e}")
+    if run_block and not row["backward_err"] <= max(
+            4.0 * row["plain_backward_err"],
+            10.0 * torch.finfo(rhs.dtype).eps):
+        raise RuntimeError(f"{label}: backward error {row['backward_err']:.3e}"
+                           f" against the plain version's "
+                           f"{row['plain_backward_err']:.3e}")
     return row
 
 
-def flagship_profile(max_admm_iters=50):
+def report_build(logs):
+    """Print ``ptxas``'s numbers per kernel instantiation; returns them as
+    records. Raises if the warp kernel's 20-wide build (the flagship's
+    B = 19 and 20) uses a stack frame or spills."""
+    rows = []
+    for name, text in logs.items():
+        entry = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = dict(library=name, function=m.group(1))
+                rows.append(entry)
+            elif entry is not None:
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line)
+                if m:
+                    entry.update(stack=int(m.group(1)),
+                                 spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    entry["registers"] = int(m.group(1))
+    for r in rows:
+        # template arguments <T, BP, EQ, PROF> in the mangled name
+        m = re.search(r"thomas_warp_kernelI([df])Li(\d+)ELb([01])ELb([01])E",
+                      r["function"])
+        if m:
+            r.update(dtype="f64" if m.group(1) == "d" else "f32",
+                     bp=int(m.group(2)), equilibrated=m.group(3) == "1",
+                     profiling=m.group(4) == "1")
+        log("  " + json.dumps(r))
+    flagship = [r for r in rows if r.get("bp") == 20 and not r["profiling"]]
+    if len(flagship) != 4:
+        raise RuntimeError(f"expected 4 warp-kernel builds at width 20 in "
+                           f"the compiler's output, found {len(flagship)}")
+    bad = [r for r in flagship if r.get("stack", 1) or r.get("spill_stores", 1)
+           or r.get("spill_loads", 1)]
+    if bad:
+        raise RuntimeError(f"the warp kernel spills at width 20: {bad}")
+    return rows
+
+
+def flagship_profile(dtype=torch.float64, max_admm_iters=50):
     from dlp_admm_torch.config import ObcaConfig, SolverConfig
-    # bench.py:207-212 with the float64 settings of bench.py:196-199
+    # bench.py:207-212 with the float64 settings of bench.py:196-199 or the
+    # float32 settings of bench.py:194
+    f64 = dtype == torch.float64
     return dict(ocfg=ObcaConfig(horizon=8, min_dis=0.1, rho=100.0,
                                 max_admm_iters=max_admm_iters),
-                scfg=SolverConfig(ip_iters=40, ip_tol=1e-6),
-                local_prox=700.0, prox_growth=1.5, prox_tau_max=3.0e10)
+                scfg=SolverConfig(ip_iters=40, ip_tol=1e-6 if f64 else 1e-4),
+                local_prox=700.0, prox_growth=1.5,
+                prox_tau_max=3.0e10 if f64 else 1.0e9, dtype=dtype)
+
+
+class CaptureFirst:
+    """Stands in for ``ip_staged.block_thomas_solve`` during a run and keeps
+    the first KKT system of each shape it is given."""
+
+    def __init__(self, solve):
+        self.solve, self.systems = solve, {}
+
+    def __call__(self, diag, upper, rhs):
+        key = tuple(rhs.shape)
+        if key not in self.systems:
+            self.systems[key] = (diag.clone(), upper.clone(), rhs.clone())
+        return self.solve(diag, upper, rhs)
+
+
+def drive(thomas, ip_staged, run, solve=None):
+    """Run ``run()`` with the launch counts set to 0 just before and read
+    just after, keeping the first KKT system of each shape. ``solve``
+    replaces the staged solver's block solve (with the plain version)."""
+    keep = ip_staged.block_thomas_solve
+    cap = CaptureFirst(solve or keep)
+    ip_staged.block_thomas_solve = cap
+    try:
+        thomas.reset_counts()
+        res = run()
+        torch.cuda.synchronize()
+        counts = dict(thomas.launches_by_kernel)
+    finally:
+        ip_staged.block_thomas_solve = keep
+    return res, counts, cap.systems
+
+
+def check_counts(name, counts, block_solves, expect):
+    """Launches == block solves, and each kernel in ``expect`` launched."""
+    log(f"{name}: kernel launches {counts}, staged block solves "
+        f"{block_solves}")
+    if sum(counts.values()) != block_solves or block_solves <= 0:
+        raise RuntimeError(f"{name}: kernel launches {counts} != block "
+                           f"solves {block_solves}")
+    for k in expect:
+        if counts[k] <= 0:
+            raise RuntimeError(f"{name}: the {k} kernel was never launched")
+
+
+def check_slice(name, res, pl, ref, counts, dev, tol, same_iterations):
+    states = res.states
+    n = len(res.metrics.iter_history)
+    if n != SMOKE_STEPS or states.shape != (SMOKE_STEPS + 1, 2, 5):
+        raise RuntimeError(f"{name} ran {n} steps, states {states.shape}")
+    if not np.all(np.isfinite(states)):
+        raise RuntimeError(f"{name} states not finite")
+    err = float(np.abs(states - ref["states"][:n + 1]).max())
+    its = np.asarray(res.metrics.iter_history)
+    log(f"{name}: max |state - JAX fixture| = {err:.3e} (tol {tol:.0e}); "
+        f"ADMM iterations {its.tolist()}, JAX "
+        f"{ref['iterations'][:n].tolist()}")
+    if not err <= tol:
+        raise RuntimeError(f"{name} states differ from the JAX fixture: "
+                           f"{err}")
+    if same_iterations and not np.array_equal(its, ref["iterations"][:n]):
+        raise RuntimeError(f"{name}: ADMM iterations {its.tolist()} != JAX "
+                           f"{ref['iterations'][:n].tolist()}")
+    check_counts(name, counts, pl.block_solves, ("warp",))
+    st, bs = pl.carry
+    for field, x in [("state", st)] + list(bs._asdict().items()):
+        if x.device.type != dev.type or x.dtype != pl.dtype:
+            raise RuntimeError(f"{name}: final carry {field} is {x.dtype} "
+                               f"on {x.device}")
+
+
+def slice_record(name, res, ref, counts, block_solves):
+    m = res.metrics
+    p = res.states[..., :2]
+    rows = res.extras["residuals"]
+    per_step = [dict(step=t, iterations=m.iter_history[t], primal=r[0],
+                     dual=r[1], gap=r[6], wall_s=m.step_times[t])
+                for t, r in enumerate(rows)]
+    for row in per_step:
+        log(json.dumps(row))
+    summary = m.summary()
+    out = dict(steps=per_step, summary=summary, launches=counts,
+               block_solves=block_solves,
+               jax_iterations=ref["iterations"][:len(rows)].tolist(),
+               min_center_distance_m=float(
+                   np.linalg.norm(p[:, 0] - p[:, 1], axis=-1).min()),
+               max_state_err_vs_jax=float(
+                   np.abs(res.states - ref["states"][:len(rows) + 1]).max()))
+    log(f"{name}: {summary['steps']} steps, wall "
+        f"{summary['total_time_s']:.3f} s, "
+        f"{summary.get('iterations_per_s', 0.0):.3f} ADMM it/s, min centre "
+        f"distance {out['min_center_distance_m']:.4f} m")
+    return out
+
+
+def multi_vehicle(thomas, ip_staged, run_obca, Formulation, num_veh, dtype,
+                  expect, tol):
+    """One MPC step of ``num_veh`` vehicles (two ADMM iterations, pairs
+    gated as in tests/test_multivehicle.py) on the kernels, and the same
+    step on their plain version; returns the record and the KKT systems."""
+    from dlp_admm_torch.config import ObcaConfig, SolverConfig
+    f64 = dtype == torch.float64
+    name = f"multi-vehicle V={num_veh} {str(dtype)[6:]}"
+
+    def run():
+        return run_obca(
+            Formulation.CONSENSUS,
+            ocfg=ObcaConfig(num_veh=num_veh, horizon=8, min_dis=0.1,
+                            rho=100.0, max_admm_iters=2),
+            scfg=SolverConfig(ip_iters=40, ip_tol=1e-6 if f64 else 1e-4),
+            n_steps=1, dtype=dtype, gate_pairs=True, gate_thres=12.0)
+
+    def plain(diag, upper, rhs):
+        return thomas.block_thomas_plain(diag, upper, rhs,
+                                         rhs.dtype != torch.float64)
+
+    res, counts, systems = drive(thomas, ip_staged, run)
+    pl = res.extras["planner"]
+    check_counts(name, counts, pl.block_solves, expect)
+    want, plain_counts, _ = drive(thomas, ip_staged, run, solve=plain)
+    if sum(plain_counts.values()):
+        raise RuntimeError(f"{name}: the plain run launched {plain_counts}")
+    if res.states.shape != (2, num_veh, 5) or not np.all(
+            np.isfinite(res.states)):
+        raise RuntimeError(f"{name}: states {res.states.shape} not finite")
+    err = float(np.abs(res.states - want.states).max())
+    log(f"{name}: KKT shapes {sorted(systems)}, max |state - plain-version "
+        f"run| = {err:.3e} (tol {tol:.0e}), wall "
+        f"{res.metrics.step_times[0]:.2f} s against "
+        f"{want.metrics.step_times[0]:.2f} s")
+    if not err <= tol:
+        raise RuntimeError(f"{name}: states differ from the plain-version "
+                           f"run: {err}")
+    rec = dict(launches=counts, block_solves=pl.block_solves,
+               kkt_shapes=sorted(systems), max_state_err_vs_plain=err,
+               iterations=res.metrics.iter_history,
+               wall_s=res.metrics.step_times[0],
+               plain_wall_s=want.metrics.step_times[0])
+    return rec, systems
 
 
 def main():
     ap = argparse.ArgumentParser(description="PyTorch port smoke run on CUDA")
     ap.add_argument("--full", action="store_true",
-                    help="also run all 42 MPC steps with the quality gates")
+                    help="also run all 42 MPC steps of both profiles")
     ap.add_argument("--out", default=None,
                     help="write every record of this run to this JSON file")
     args = ap.parse_args()
@@ -180,7 +527,8 @@ def main():
     from dlp_admm_torch.config import Formulation
     from dlp_admm_torch.mpc import run_obca
     from dlp_admm_torch.solvers import ip_staged, thomas
-    ref = np.load(FIXTURE)
+    refs = {torch.float64: np.load(FIXTURE),
+            torch.float32: np.load(FIXTURE_F32)}
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -191,74 +539,90 @@ def main():
     t0 = time.perf_counter()
     ptxas = thomas.build()
     build_s = time.perf_counter() - t0
-    log(f"build: block_thomas in {build_s:.2f} s")
-    for line in ptxas.splitlines():
-        if "registers" in line or "smem" in line or "Compiling" in line:
-            log("  " + line.strip())
-    records["build_s"] = build_s
+    log(f"build: {', '.join(ptxas)} in {build_s:.2f} s")
+    records.update(build_s=build_s, ptxas=report_build(ptxas))
 
     # -- 3. kernel vs plain version -------------------------------------
     rng = np.random.default_rng(0)
     synth = []
     for dtype in (torch.float64, torch.float32):
-        for s, t, b in SHAPES:
-            for kind_ in KINDS:
+        for s, t, b in SHAPES + WIDE_SHAPES:
+            for kind_, eq in VARIANTS:
                 d, u, r = (torch.as_tensor(a, dtype=dtype, device=dev)
                            for a in make_system(rng, s, t, b, kind_))
-                synth.append(compare(
-                    thomas, d, u, r, f"{kind_} S={s} T={t} B={b} "
-                    f"{str(dtype)[6:]}", timed=kind_ == "diag_dominant"))
+                label = (f"{kind_} S={s} T={t} B={b} {str(dtype)[6:]}"
+                         f"{' equilibrated' if eq else ''}")
+                synth.append(compare(thomas, d, u, r, label, eq,
+                                     timed=kind_ == "diag_dominant"))
+                if b <= thomas.WARP_MAX_B:
+                    synth.append(compare(thomas, d, u, r, label, eq,
+                                         kernel="wide"))
     records["kernel_vs_plain"] = synth
 
-    # -- 4. the slice ---------------------------------------------------
-    captured = {}
-    solve = ip_staged.block_thomas_solve
+    # -- 4, 5. the slices -----------------------------------------------
+    systems = {}
+    paths = {}
+    for name, dtype, tol, same_its in (
+            ("slice float64", torch.float64, STATE_TOL, True),
+            ("slice float32", torch.float32, STATE_TOL_F32, False)):
+        res, counts, kkt = drive(
+            thomas, ip_staged, lambda: run_obca(
+                Formulation.CONSENSUS, n_steps=SMOKE_STEPS,
+                **flagship_profile(dtype)))
+        pl = res.extras["planner"]
+        check_slice(name, res, pl, refs[dtype], counts, dev, tol, same_its)
+        records[name] = slice_record(name, res, refs[dtype], counts,
+                                     pl.block_solves)
+        if len(kkt) != 2:
+            raise RuntimeError(f"{name}: expected local and edge KKT "
+                               f"shapes, got {sorted(kkt)}")
+        systems[name] = kkt
+        paths[name] = counts
 
-    def capture_first(diag, upper, rhs):
-        key = tuple(rhs.shape)
-        if key not in captured:
-            captured[key] = (diag.clone(), upper.clone(), rhs.clone())
-        return solve(diag, upper, rhs)
+    # -- 6. the multi-vehicle path --------------------------------------
+    for num_veh, dtype, expect, tol in (
+            (4, torch.float64, ("wide",), STATE_TOL),
+            (3, torch.float32, ("warp", "wide"), STATE_TOL_F32)):
+        name = f"multi-vehicle V={num_veh} {str(dtype)[6:]}"
+        records[name], systems[name] = multi_vehicle(
+            thomas, ip_staged, run_obca, Formulation, num_veh, dtype, expect,
+            tol)
+        paths[name] = records[name]["launches"]
 
-    ip_staged.block_thomas_solve = capture_first
-    try:
-        thomas.launches = 0
-        res = run_obca(Formulation.CONSENSUS, n_steps=SMOKE_STEPS,
-                       device=dev, dtype=torch.float64,
-                       **flagship_profile())
-        torch.cuda.synchronize()
-        launches = thomas.launches
-    finally:
-        ip_staged.block_thomas_solve = solve
-    pl = res.extras["planner"]
-    check_slice(res, pl, ref, launches, dev)
-    records["slice"] = slice_record(res, ref, launches, pl.block_solves)
+    # -- 7. the kernels on the KKT blocks those runs gave them ----------
+    real = []
+    for name, kkt in systems.items():
+        for key in sorted(kkt):
+            d, u, r = kkt[key]
+            real.append(dict(compare(
+                thomas, d, u, r, f"{name} KKT S={key[0]} T={key[1]} "
+                f"B={key[2]}", r.dtype != torch.float64, timed=True,
+                run_block=True), path=name))
+    records["kernel_on_run_blocks"] = real
 
-    # the kernel on the KKT blocks the flagship gave it (first IP trips)
-    real = [compare(thomas, *captured[k], f"flagship KKT S={k[0]} T={k[1]} "
-                    f"B={k[2]} float64", timed=True) for k in sorted(captured)]
-    if len(real) != 2:
-        raise RuntimeError(f"expected local and edge KKT shapes, got "
-                           f"{sorted(captured)}")
-    records["kernel_on_flagship_blocks"] = real
-
-    # -- 5. --full ------------------------------------------------------
+    # -- 8. --full ------------------------------------------------------
     if args.full:
-        records["full"] = run_full(run_obca, Formulation, ref, dev)
-        dump(args.out, records)        # kept for diagnosis if a gate fails
-        failed = [g for g, ok in records["full"]["gates"].items() if not ok]
-        if failed:
-            raise RuntimeError(f"--full quality gates failed: {failed}")
+        records["full"] = {}
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype)[6:]
+            res, counts, _ = drive(
+                thomas, ip_staged, lambda: run_obca(
+                    Formulation.CONSENSUS, **flagship_profile(dtype)))
+            check_counts(f"full {name}", counts,
+                         res.extras["planner"].block_solves, ("warp",))
+            records["full"][name] = dict(full_record(res, refs[dtype], name),
+                                         launches=counts)
+            dump(args.out, records)    # kept for diagnosis if a gate fails
+        failed = {name: [g for g, ok in rec["gates"].items() if not ok]
+                  for name, rec in records["full"].items()}
+        if any(failed.values()):
+            raise RuntimeError(f"--full gates failed: {failed}")
 
-    main_path = max(real, key=lambda r: r["max_abs_err"])
-    local = next(r for r in real if "S=2 " in r["case"])
-    kernels = {"kernels": [{
-        "name": "block_thomas", "route": "cuda",
-        "source": "dlp_admm_torch/csrc/block_thomas.cu",
-        "replaces": "dlp_admm_tpu/solvers/thomas_pallas.py:145",
-        "launches": launches, "max_abs_err": main_path["max_abs_err"],
-        "ms": local["ms"], "plain_ms": local["plain_ms"]}]}
-    records.update(kernels, device=kind, nvidia_smi=smi)
+    kernels = {"kernels": [
+        kernel_entry("warp", real, paths, "slice float64", (2, 7, 19)),
+        kernel_entry("wide", real, paths, "multi-vehicle V=4 float64",
+                     (1, 7, 80))]}
+    records.update(kernels, paths=paths, device=kind, nvidia_smi=smi)
     dump(args.out, records)
     log(json.dumps(kernels))
     log(smi)
@@ -267,52 +631,29 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def check_slice(res, pl, ref, launches, dev):
-    states = res.states
-    n = len(res.metrics.iter_history)
-    if n != SMOKE_STEPS or states.shape != (SMOKE_STEPS + 1, 2, 5):
-        raise RuntimeError(f"slice ran {n} steps, states {states.shape}")
-    if not np.all(np.isfinite(states)):
-        raise RuntimeError("slice states not finite")
-    err = float(np.abs(states - ref["states"][:n + 1]).max())
-    its = np.asarray(res.metrics.iter_history)
-    log(f"slice: max |state - JAX fixture| = {err:.3e} (tol {STATE_TOL:.0e})")
-    if not err <= STATE_TOL:
-        raise RuntimeError(f"slice states differ from the JAX fixture: {err}")
-    if not np.array_equal(its, ref["iterations"][:n]):
-        raise RuntimeError(f"ADMM iterations {its.tolist()} != JAX "
-                           f"{ref['iterations'][:n].tolist()}")
-    log(f"slice: kernel launches {launches}, staged block solves "
-        f"{pl.block_solves}")
-    if launches <= 0 or launches != pl.block_solves:
-        raise RuntimeError(f"kernel launches {launches} != block solves "
-                           f"{pl.block_solves}")
-    st, bs = pl.carry
-    for name, x in [("state", st)] + list(bs._asdict().items()):
-        if x.device.type != dev.type:
-            raise RuntimeError(f"final carry {name} lies on {x.device}")
-
-
-def slice_record(res, ref, launches, block_solves):
-    m = res.metrics
-    p = res.states[..., :2]
-    rows = res.extras["residuals"]
-    per_step = [dict(step=t, iterations=m.iter_history[t], primal=r[0],
-                     dual=r[1], gap=r[6], wall_s=m.step_times[t])
-                for t, r in enumerate(rows)]
-    for row in per_step:
-        log(json.dumps(row))
-    summary = m.summary()
-    out = dict(steps=per_step, summary=summary, launches=launches,
-               block_solves=block_solves,
-               min_center_distance_m=float(
-                   np.linalg.norm(p[:, 0] - p[:, 1], axis=-1).min()),
-               max_state_err_vs_jax=float(
-                   np.abs(res.states - ref["states"][:len(rows) + 1]).max()))
-    log(f"slice: {summary['steps']} steps, wall {summary['total_time_s']:.3f} s"
-        f", {summary.get('iterations_per_s', 0.0):.3f} ADMM it/s, min centre "
-        f"distance {out['min_center_distance_m']:.4f} m")
-    return out
+def kernel_entry(name, real, paths, path, shape):
+    """One kernel's line: launches over every driven path, and the error
+    against the plain version and the times on the KKT system of ``shape``
+    that ``path`` gave it; ``worst_rel_err`` is the largest relative error
+    on any path's system (held to RUN_TOL and to the plain version's
+    backward error by :func:`compare`)."""
+    rows = [r for r in real if r["kernel"] == name]
+    at = next(r for r in rows if r["path"] == path
+              and tuple(r["shape"]) == shape)
+    launches = sum(c[name] for c in paths.values())
+    if launches <= 0:
+        raise RuntimeError(f"no driven path launched the {name} kernel")
+    return dict(
+        name=f"block_thomas_{name}", route="cuda",
+        source=f"dlp_admm_torch/csrc/block_thomas_{name}.cu",
+        replaces=REPLACES, launches=launches,
+        launches_by_path={p: c[name] for p, c in paths.items()},
+        max_abs_err=at["max_abs_err"], max_rel_err=at["max_rel_err"],
+        tol=at["tol"], worst_rel_err=max(r["max_rel_err"] for r in rows),
+        shape=list(shape), dtype=at["dtype"], ms=at["ms"],
+        plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+        bound_us=at["bound_us"], bound_by=at["bound_by"],
+        library_ms=at["library_ms"], us_per_pivot=at["us_per_pivot"])
 
 
 def polygon_gap(p, q):
@@ -337,12 +678,12 @@ def polygon_gap(p, q):
                for a, b in ((p, q), (q, p)) for x in a for i in range(len(b)))
 
 
-def run_full(run_obca, Formulation, ref, dev):
-    """All 42 steps and the gates of tests/test_flagship_convergence.py:38-74
-    (``gates`` maps each to whether it held)."""
+def full_record(res, ref, name):
+    """The 42-step run's numbers. ``gates`` are the checks that hold
+    whichever branch the conflict window takes, and fail the run; ``pins``
+    are the other pins of tests/test_flagship_convergence.py:38-74 (one
+    trajectory's values), reported with the JAX run's beside them."""
     from dlp_admm_torch.ops.geometry import vehicle_vertices
-    res = run_obca(Formulation.CONSENSUS, device=dev, dtype=torch.float64,
-                   **flagship_profile())
     m = res.metrics
     rows = res.extras["residuals"]
     states = res.states
@@ -355,32 +696,45 @@ def run_full(run_obca, Formulation, ref, dev):
     d = np.linalg.norm(p[:, 0] - p[:, 1], axis=-1)
     res_ok = (prs <= 0.011) & (dus <= 0.011)
     n = len(its)
+    # the reference's own safety oracle: the vehicles' footprints never meet
+    corners = vehicle_vertices(torch.as_tensor(states,
+                                               dtype=torch.float64)).numpy()
+    footprint_gap = float(min(polygon_gap(c[0], c[1]) for c in corners))
     gates = {
         "steps == 42": n == 42,
         "finite states": bool(np.all(np.isfinite(states))),
+        "overtake completed": bool(states[0, 0, 0] < states[0, 1, 0]
+                                   and states[-1, 0, 0] > states[-1, 1, 0]),
+        "footprint gap > min_dis (0.1 m)": footprint_gap > 0.1,
+        "res_ok >= 39/42": int(res_ok.sum()) >= 39,
+    }
+    pins = {
         "res_ok >= 40/42": int(res_ok.sum()) >= 40,
         "res_ok == (its < 50)": bool(np.array_equal(res_ok, its < 50)),
         "mean iterations < 24": float(its.mean()) < 24.0,
         "min distance > 3.8 m": float(d.min()) > 3.8,
-        "overtake completed": bool(states[0, 0, 0] < states[0, 1, 0]
-                                   and states[-1, 0, 0] > states[-1, 1, 0]),
         "nlp health >= 0.9": float(np.mean(oks == 1.0)) >= 0.9,
         "gap median < 0.02": float(np.median(gaps)) < 0.02,
         "gap max < 1.0": float(gaps.max()) < 1.0,
     }
-    # the reference's own safety oracle: the vehicles' footprints never meet
-    corners = vehicle_vertices(torch.as_tensor(states)).numpy()
+    jp = ref["states"][..., :2]
+    jax_run = dict(
+        res_ok=int(((ref["primal"] <= 0.011) & (ref["dual"] <= 0.011)).sum()),
+        mean_iterations=float(ref["iterations"].mean()),
+        min_distance_m=float(np.linalg.norm(jp[:, 0] - jp[:, 1],
+                                            axis=-1).min()),
+        health=float(np.mean(ref["nlp_ok"] == 1.0)),
+        gap_median=float(np.median(ref["gaps"])),
+        gap_max=float(ref["gaps"].max()))
     k = min(n, len(ref["iterations"]))
     out = dict(
         steps=n, res_ok=int(res_ok.sum()), mean_iterations=float(its.mean()),
-        min_distance_m=float(d.min()),
-        min_footprint_gap_m=float(min(polygon_gap(c[0], c[1])
-                                      for c in corners)),
+        min_distance_m=float(d.min()), min_footprint_gap_m=footprint_gap,
         health=float(np.mean(oks == 1.0)),
         gap_median=float(np.median(gaps)), gap_max=float(gaps.max()),
         summary=m.summary(), iterations=its.tolist(),
         step_wall_s=m.step_times, residual_rows=rows,
-        states=states.tolist(), gates=gates,
+        states=states.tolist(), gates=gates, pins=pins, jax_cpu_run=jax_run,
         vs_jax=dict(
             max_state_err=float(np.abs(states[:k + 1]
                                        - ref["states"][:k + 1]).max()),
@@ -389,11 +743,14 @@ def run_full(run_obca, Formulation, ref, dev):
                     states[t] - ref["states"][t]).max() > STATE_TOL), None),
             steps_with_other_iterations=[
                 t for t in range(k) if its[t] != ref["iterations"][t]]))
-    log("full: " + json.dumps({x: out[x] for x in (
+    log(f"full {name}: " + json.dumps({x: out[x] for x in (
         "steps", "res_ok", "mean_iterations", "min_distance_m",
-        "min_footprint_gap_m", "health", "gap_median", "gap_max",
-        "vs_jax")}))
-    log(f"full: wall {m.summary()['total_time_s']:.3f} s, "
+        "min_footprint_gap_m", "health", "gap_median", "gap_max", "gates",
+        "pins", "jax_cpu_run", "vs_jax")}))
+    if name == "float64":
+        log("full float64, the block-per-system kernel's earlier run: "
+            + json.dumps(EARLIER_FULL_F64))
+    log(f"full {name}: wall {m.summary()['total_time_s']:.3f} s, "
         f"{m.summary()['iterations_per_s']:.3f} ADMM it/s")
     return out
 

@@ -5,8 +5,10 @@ module names (``config``, ``scenarios``, ``ops``, ``coordination``,
 ``solvers``, ``models``, ``utils``, ``mpc``) and imports ``torch``, never
 ``jax``. So far it carries the consensus-OBCA flagship
 (``models.obca.ConsensusObcaPlanner``, ``mpc.run_obca(Formulation.CONSENSUS)``)
-in float64, with the block-tridiagonal KKT solve of the staged interior-point
-solver as a hand-written CUDA kernel (``csrc/block_thomas.cu``).
+in float64 and float32, with the block-tridiagonal KKT solve of the staged
+interior-point solver as hand-written CUDA kernels
+(``csrc/block_thomas_warp.cu``, ``csrc/block_thomas_wide.cu``). Its entry
+points run on the CUDA card unless the caller names another device.
 
 Importing the package turns TF32 off for float32 matmuls and convolutions,
 the counterpart of ``dlp_admm_tpu/__init__.py`` forcing full-float32 matmul

@@ -3,7 +3,9 @@
 Each library is compiled with ``nvcc`` for Hopper (``sm_90a``) from the
 sources under ``dlp_admm_torch/csrc/`` into ``dlp_admm_torch/_build/``
 (listed in ``.gitignore``), under a file name keyed on a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is not. The
+and flags, so an edited source is rebuilt and an unchanged one is not. A
+library may add flags of its own (``-D...``), so one source can be built
+once per element type, the compilers running side by side. The
 libraries have a plain C interface and are loaded with ``ctypes``; nothing
 here includes PyTorch's headers, so a build takes seconds.
 
@@ -41,37 +43,75 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def library_path(name: str, sources) -> Path:
-    """Where the library built from ``sources`` lives (content-keyed)."""
+def library_path(name: str, sources, flags=()) -> Path:
+    """Where the library built from ``sources`` with the extra ``flags``
+    lives (content-keyed)."""
     h = hashlib.sha256()
     for src in sources:
         h.update(Path(src).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *flags)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, sources) -> tuple[Path, str]:
-    """Compile ``sources`` into ``lib<name>_<hash>.so`` unless it exists.
-    Returns the path and the compiler's output (register and shared-memory
-    use per kernel from ``-Xptxas -v``; empty when nothing was built)."""
-    out = library_path(name, sources)
+def _start(name: str, sources, flags=()):
+    """Start ``nvcc`` for one library unless it exists: ``(path, tmp, cmd,
+    process or None)``."""
+    out = library_path(name, sources, flags)
     if out.exists():
-        return out, ""
+        return out, None, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+           *map(str, sources)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, tmp, cmd, proc
+
+
+def _finish(out, tmp, cmd, proc) -> str:
+    """Wait for the compiler and return its output, which is kept beside the
+    library so that a later call that finds the library finds it too."""
+    log_path = out.with_suffix(".log")
+    if proc is None:
+        return log_path.read_text() if log_path.exists() else ""
+    log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
+                           f"\n{log}")
+    log_path.write_text(log)
     os.replace(tmp, out)        # atomic: a concurrent builder sees all or none
-    return out, proc.stdout + proc.stderr
+    return log
 
 
-def load(name: str, sources) -> ctypes.CDLL:
+def build_all(libraries: dict) -> dict:
+    """Compile each ``name -> (sources, flags)`` into ``lib<name>_<hash>.so``
+    unless it exists, one ``nvcc`` per library, all started together.
+    Returns each library's compiler output (register and shared-memory use
+    per kernel from ``-Xptxas -v``), from this build or the one that made
+    the library."""
+    started = {name: _start(name, *lib) for name, lib in libraries.items()}
+    logs, errors = {}, []
+    for name, job in started.items():        # every process is waited for
+        try:
+            logs[name] = _finish(*job)
+        except RuntimeError as e:
+            errors.append(e)
+    if errors:
+        raise errors[0]
+    return logs
+
+
+def build(name: str, sources, flags=()) -> tuple[Path, str]:
+    """Compile ``sources`` into ``lib<name>_<hash>.so`` unless it exists.
+    Returns the path and the compiler's output."""
+    log = build_all({name: (sources, flags)})[name]
+    return library_path(name, sources, flags), log
+
+
+def load(name: str, sources, flags=()) -> ctypes.CDLL:
     """Build if needed, then load (once per process) the library."""
-    path, _ = build(name, sources)
+    path, _ = build(name, sources, flags)
     lib = _loaded.get(path)
     if lib is None:
         lib = _loaded[path] = ctypes.CDLL(str(path))

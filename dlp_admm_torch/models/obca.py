@@ -43,7 +43,19 @@ from ..ops.pairs import pair_indices
 from ..solvers.ip_staged import StagedNLP, solve_staged
 
 _TODO_OPTIONS = "ROADMAP.md queue 1, item 'ConsensusObcaPlanner options'"
-_TODO_F32 = "ROADMAP.md queue 1, item 'f32 flagship profile'"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a planner runs on: the CUDA card unless the caller names
+    another. Raises where the card is asked for (by name or by default) and
+    there is none; nothing falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the planner runs on a CUDA card by default and "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "on the CPU")
+    return dev
 
 
 def _box_bounds(ocfg: ObcaConfig, vcfg: VehicleConfig, **kw):
@@ -98,8 +110,13 @@ class ConsensusObcaPlanner:
     reference). See ``dlp_admm_tpu.models.obca.ConsensusObcaPlanner`` for the
     rationale of every option; the defaults are the same.
 
-    ``device`` and ``dtype`` place every tensor of the planner; only
-    float64 is supported so far.
+    ``device`` and ``dtype`` place every tensor of the planner. ``device``
+    defaults to the CUDA card (:func:`resolve_device`); ``dtype`` is
+    float64 or float32. In float32 the staged solver equilibrates every
+    stage solve inside the block-Thomas kernel and refines twice, and the
+    flagship's profile is ``ip_tol=1e-4``, ``prox_tau_max=1e9`` (the
+    float64 profile's 1e-6 is below the float32 noise floor of the scaled
+    KKT residuals, and its 3e10 prox tail swamps the KKT conditioning).
     """
 
     def __init__(self, ocfg: ObcaConfig = ObcaConfig(),
@@ -119,7 +136,7 @@ class ConsensusObcaPlanner:
                  commit_w: float = 1000.0, local_prox: float = 0.0,
                  prox_after: int = 0, prox_growth: float = 1.0,
                  prox_adaptive: bool = False, prox_tau_max: float = 3.0e10,
-                 dtype=torch.float64, device="cpu"):
+                 dtype=torch.float64, device=None):
         if lamb_ij_mode not in ("frozen", "track_local", "track_edge"):
             raise ValueError(f"unknown lamb_ij_mode {lamb_ij_mode!r}")
         if local_warm_mode not in ("reference", "previous"):
@@ -136,9 +153,8 @@ class ConsensusObcaPlanner:
             if unported:
                 raise NotImplementedError(
                     f"{name} is not ported yet ({_TODO_OPTIONS})")
-        if dtype != torch.float64:
-            raise NotImplementedError(
-                f"dtype {dtype}: only float64 is ported so far ({_TODO_F32})")
+        if dtype not in (torch.float64, torch.float32):
+            raise TypeError(f"dtype must be float64 or float32, got {dtype}")
         self.ocfg, self.vcfg, self.scfg = ocfg, vcfg, scfg
         self.lamb_ij_mode = lamb_ij_mode
         self.local_warm_mode = local_warm_mode
@@ -147,7 +163,7 @@ class ConsensusObcaPlanner:
             strategy=DualStrategy.PLAIN, windup=WindupMode.SAT,
             windup_sat=20.0, adaptive_rho=False)
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.gate_pairs, self.gate_thres = gate_pairs, gate_thres
         if refs is None:
             refs = scenarios.ref_traj_overtake(vcfg, ocfg.num_veh)
@@ -470,11 +486,13 @@ class ConsensusObcaPlanner:
         return self.refs[:, start:start + n]
 
     def _prox_tau(self, it: int) -> float:
-        """Annealed local prox weight of ADMM iteration ``it``."""
+        """Annealed local prox weight of ADMM iteration ``it``, grown and
+        clamped in the planner's dtype as the JAX planner does."""
         if it < self.prox_after:
             return 0.0
-        return min(self.local_prox * self.prox_growth ** (it - self.prox_after),
-                   self.prox_tau_max)
+        grown = self.local_prox * torch.tensor(
+            self.prox_growth, dtype=self.dtype) ** (it - self.prox_after)
+        return min(float(grown), self.prox_tau_max)
 
     def _local_solve(self, bs: BarState, init_state, ref_win, rho, x_prev,
                      mask_veh, prox_tau: float):

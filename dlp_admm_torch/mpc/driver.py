@@ -30,10 +30,12 @@ def run_obca(formulation: Formulation = Formulation.CONSENSUS,
              scfg: SolverConfig = SolverConfig(),
              n_steps: Optional[int] = None,
              plot_path: Optional[str] = None,
-             device="cpu", dtype=torch.float64,
+             device=None, dtype=torch.float64,
              **planner_kwargs) -> RunResult:
     """Run the consensus-ADMM OBCA flagship end to end on ``device``
-    (≙ ``decentralized_overtaking_ADMM.py``).
+    (≙ ``decentralized_overtaking_ADMM.py``): the CUDA card unless the
+    caller names another device, e.g. ``device="cpu"``; without a card the
+    default raises. ``dtype`` is float64 or float32.
 
     ``metrics.step_times`` holds one wall time per MPC step; ``extras``
     holds ``converge_flags``, the planner's per-step ``residuals`` rows

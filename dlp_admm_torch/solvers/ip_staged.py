@@ -103,9 +103,16 @@ def _ftb(v, dv, tau):
 def block_thomas_solve(diag, upper, rhs):
     """Batched symmetric block-tridiagonal solve ``diag [S, T, B, B]``,
     ``upper [S, T, B, B]`` (entry T-1 ignored), ``rhs [S, T, B]`` ->
-    ``[S, T, B]``: the kernel of :mod:`.thomas` (its plain version on CPU)."""
-    return thomas.block_thomas_solve(diag.contiguous(), upper.contiguous(),
-                                     rhs.contiguous())
+    ``[S, T, B]``: the kernel of :mod:`.thomas` (its plain version on CPU).
+
+    In float32 each per-stage solve is equilibrated and refined once inside
+    the kernel, as the JAX solver does (``linalg.equil_solve``): the
+    planner's annealed-prox Hessians mix O(1e6) curvature rows with O(1)
+    constraint rows and near-zero multiplier diagonals, which a raw float32
+    elimination cannot factor accurately."""
+    return thomas.block_thomas_solve(
+        diag.contiguous(), upper.contiguous(), rhs.contiguous(),
+        equilibrate=rhs.dtype != torch.float64)
 
 
 class _Carry(NamedTuple):
@@ -151,13 +158,13 @@ def _trips_graphed(trip, carry, max_trips):
     static = _Carry(*(x.clone() for x in carry))
     stream.wait_stream(torch.cuda.current_stream(dev))
     graph = torch.cuda.CUDAGraph()
-    captured = thomas.captured
+    before = dict(thomas.captured)
     with torch.cuda.stream(stream):
         graph.capture_begin()
         for dst, src in zip(static, trip(static)):
             dst.copy_(src)
         graph.capture_end()
-    kernels = thomas.captured - captured
+    kernels = {k: n - before[k] for k, n in thomas.captured.items()}
     while trips < max_trips:
         thomas.replay(graph, kernels)
         trips += 1

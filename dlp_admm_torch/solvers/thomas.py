@@ -1,4 +1,4 @@
-"""Batched symmetric block-tridiagonal solve: the CUDA kernel and its plain
+"""Batched symmetric block-tridiagonal solve: the CUDA kernels and their plain
 PyTorch version.
 
 Port of the Pallas kernel ``dlp_admm_tpu/solvers/thomas_pallas.py``
@@ -9,14 +9,29 @@ pivot floored at +-1e-30 (sign kept). ``diag [S, T, B, B]``,
 ``upper^T``), ``rhs [S, T, B]`` -> ``[S, T, B]``, float32 or float64.
 
 Unlike the Pallas kernel, the elimination swaps rows (partial pivoting, the
-first largest entry of the pivot column), as the JAX package's float64
-per-stage LU does: the flagship's stage blocks are saddle-point KKT
-matrices, which an unpivoted elimination may not factor
-(``csrc/block_thomas.cu`` says more). Where no swap is needed the two agree.
+first largest entry of the pivot column), as the JAX package's per-stage LU
+does: the flagship's stage blocks are saddle-point KKT matrices, which an
+unpivoted elimination may not factor. Where no swap is needed the two agree.
+
+With ``equilibrate=True`` each stage solve is what
+``dlp_admm_tpu/solvers/linalg.py::equil_solve`` is to the JAX package's
+float32 stage solve: ``d = 1/sqrt(max(rowmax|C_k|, 1e-30))``, eliminate
+``(D C D) Y = D [U_k | g_k]``, one refinement pass on the scaled system,
+``X = D Y``. It stays one kernel launch per solve.
+
+Two kernels, chosen by the block width (:func:`kernel_plan`):
+
+* ``warp`` (``csrc/block_thomas_warp.cu``, compiled once per element type),
+  B <= 32: one warp per system, the augmented tile in registers, no block
+  barrier inside a pivot step;
+* ``wide`` (``csrc/block_thomas_wide.cu``), B up to the shared-memory limit
+  (97 in float64, 75 equilibrated): one thread block per system, the tile in
+  shared memory.
 
 :func:`block_thomas_solve` takes the plain version for tensors on the CPU and
-launches ``csrc/block_thomas.cu`` for tensors on a CUDA device; there is no
-fallback between the two. :data:`launches` counts kernel launches.
+launches a kernel for tensors on a CUDA device; there is no fallback between
+the two, nor from one kernel to the other. :data:`launches` counts kernel
+launches, :data:`launches_by_kernel` by kernel.
 """
 from __future__ import annotations
 
@@ -27,31 +42,100 @@ import torch
 from .. import cuda_build
 
 PIVOT_FLOOR = 1e-30
-SOURCES = (cuda_build.CSRC_DIR / "block_thomas.cu",)
+KERNELS = ("warp", "wide")
+_WARP_SRC = (cuda_build.CSRC_DIR / "block_thomas_warp.cu",)
+# library -> (sources, extra nvcc flags); one compiler each, side by side
+LIBRARIES = {
+    "block_thomas_warp_f64": (_WARP_SRC, ("-DBLOCK_THOMAS_REAL=double",)),
+    "block_thomas_warp_f32": (_WARP_SRC, ("-DBLOCK_THOMAS_REAL=float",)),
+    "block_thomas_wide": ((cuda_build.CSRC_DIR / "block_thomas_wide.cu",),
+                          ()),
+}
+WARP_MAX_B = 32
+WARP_WIDTHS = (20, 32)      # width bounds the warp kernel is compiled for
+WARP_MAX_WARPS = 4          # systems per block, at most
+WIDE_THREADS = 256
+# an H100's per-block shared-memory limit and SM count: kernel_plan's
+# defaults when no device is asked (the CPU tests)
+H100_SMEM_LIMIT = 232448
+H100_SM_COUNT = 132
 
-# kernel launches made by block_thomas_solve or by replaying a CUDA graph
-# that holds it (a run can show it went through the kernel); the plain
-# version does not count
+# kernel launches made by block_thomas_solve / launch_kernel or by replaying
+# a CUDA graph that holds them (a run can show it went through the kernels);
+# the plain version does not count
 launches = 0
+launches_by_kernel = dict.fromkeys(KERNELS, 0)
 # kernels recorded into CUDA graphs under stream capture (not yet launched)
-captured = 0
+captured = dict.fromkeys(KERNELS, 0)
+
+_limits: dict = {}
 
 
-def replay(graph, kernels: int) -> None:
-    """Replay a captured CUDA graph that holds ``kernels`` of this kernel's
-    launches (counted by :data:`captured` during its capture)."""
+def reset_counts() -> None:
+    """Set every launch count to 0."""
     global launches
+    launches = 0
+    for name in KERNELS:
+        launches_by_kernel[name] = 0
+
+
+def _count(kernels: dict) -> None:
+    global launches
+    for name, n in kernels.items():
+        launches_by_kernel[name] += n
+        launches += n
+
+
+def replay(graph, kernels: dict) -> None:
+    """Replay a captured CUDA graph that holds ``kernels[name]`` launches of
+    each kernel (the growth of :data:`captured` during its capture)."""
     graph.replay()
-    launches += kernels
+    _count(kernels)
+
+
+def _gauss_jordan(c: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``C^-1 M`` for ``c [S, B, B]``, ``m [S, B, M]`` by the kernels'
+    elimination: row j swaps with the first row i >= j of largest
+    ``|aug[i, j]|``, the pivot is floored, row i subtracts its multiplier
+    ``aug[i, j] / pivot`` times the pivot row, and the pivot row is scaled
+    by the same reciprocal."""
+    s, b = c.shape[0], c.shape[1]
+    floor = torch.full((s,), PIVOT_FLOOR, dtype=c.dtype, device=c.device)
+    rows = torch.arange(b, device=c.device)
+    aug = torch.cat([c, m], dim=-1)
+    for j in range(b):
+        p = (j + torch.argmax(aug[:, j:, j].abs(), dim=1))[:, None]
+        perm = torch.where(rows == j, p, torch.where(rows == p, j, rows))
+        aug = torch.gather(aug, 1, perm[..., None].expand(aug.shape))
+        pjj = aug[:, j, j]
+        pjj = torch.where(pjj.abs() > PIVOT_FLOOR, pjj,
+                          torch.where(pjj >= 0, floor, -floor))
+        inv = (1.0 / pjj)[:, None]
+        row = aug[:, j, :]
+        aug = aug - (aug[:, :, j] * inv)[:, :, None] * row[:, None, :]
+        aug[:, j, :] = row * inv
+    return aug[:, :, b:]
+
+
+def _equil_solve(c: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Row-max equilibrated stage solve with one refinement pass on the
+    scaled system (``linalg.equil_solve`` of the JAX package, with the
+    kernels' elimination in place of its LU)."""
+    d = 1.0 / torch.sqrt(torch.clamp(c.abs().amax(dim=-1), min=PIVOT_FLOOR))
+    a_s = c * d[:, :, None] * d[:, None, :]
+    m_s = m * d[:, :, None]
+    y = _gauss_jordan(a_s, m_s)
+    y = y + _gauss_jordan(a_s, m_s - a_s @ y)
+    return y * d[:, :, None]
 
 
 def block_thomas_plain(diag: torch.Tensor, upper: torch.Tensor,
-                       rhs: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain batched PyTorch (same recursion, same
-    pivot choice, same pivot floor)."""
-    s, t, b = rhs.shape
-    floor = torch.full((s,), PIVOT_FLOOR, dtype=rhs.dtype, device=rhs.device)
-    rows = torch.arange(b, device=rhs.device)
+                       rhs: torch.Tensor,
+                       equilibrate: bool = False) -> torch.Tensor:
+    """The kernels' function in plain batched PyTorch (same recursion, same
+    pivot choice, same pivot floor, same equilibration and refinement)."""
+    t, b = rhs.shape[1], rhs.shape[2]
+    solve = _equil_solve if equilibrate else _gauss_jordan
     xs, ys = [], []
     x_prev = y_prev = None
     for k in range(t):
@@ -61,19 +145,8 @@ def block_thomas_plain(diag: torch.Tensor, upper: torch.Tensor,
             c_k = c_k - u_t @ x_prev
             g_k = g_k - (u_t @ y_prev[..., None])[..., 0]
         u_k = upper[:, k] if k < t - 1 else torch.zeros_like(c_k)
-        aug = torch.cat([c_k, u_k, g_k[..., None]], dim=-1)   # [S, B, 2B+1]
-        for j in range(b):
-            # swap row j with the first row i >= j of largest |aug[i, j]|
-            p = (j + torch.argmax(aug[:, j:, j].abs(), dim=1))[:, None]
-            perm = torch.where(rows == j, p, torch.where(rows == p, j, rows))
-            aug = torch.gather(aug, 1, perm[..., None].expand(aug.shape))
-            pjj = aug[:, j, j]
-            pjj = torch.where(pjj.abs() > PIVOT_FLOOR, pjj,
-                              torch.where(pjj >= 0, floor, -floor))
-            piv = aug[:, j, :] / pjj[:, None]
-            aug = aug - aug[:, :, j, None] * piv[:, None, :]
-            aug[:, j, :] = piv
-        x_prev, y_prev = aug[:, :, b:2 * b], aug[:, :, 2 * b]
+        sol = solve(c_k, torch.cat([u_k, g_k[..., None]], dim=-1))
+        x_prev, y_prev = sol[:, :, :b], sol[:, :, b]
         xs.append(x_prev)
         ys.append(y_prev)
     z = torch.zeros_like(rhs[:, 0])
@@ -84,30 +157,137 @@ def block_thomas_plain(diag: torch.Tensor, upper: torch.Tensor,
     return torch.stack(out, dim=1)
 
 
-def _lib():
-    lib = cuda_build.load("block_thomas", SOURCES)
+# -- launch layouts (plain Python: the CPU tests reach them) -----------------
+
+def warp_elems(b: int, bp: int, t: int, equilibrate: bool,
+               hist_in_smem: bool) -> int:
+    """Shared-memory elements one warp of the warp kernel needs (the layout
+    of ``warp_elems`` in ``csrc/block_thomas_warp.cu``)."""
+    n = b * b + b + 2 * b * b + b * (bp + 1)
+    if equilibrate:
+        n += b * (2 * bp + 1)
+    if hist_in_smem:
+        n += t * b * (bp + 1)
+    return n
+
+
+def wide_elems(b: int, equilibrate: bool) -> int:
+    """Shared-memory elements one block of the wide kernel needs (the layout
+    of ``wide_elems`` in ``csrc/block_thomas_wide.cu``)."""
+    w = 2 * b + 1
+    n = b * w + b * b + b + 2 * w + b
+    if equilibrate:
+        n += b * w + b
+    return n
+
+
+def kernel_plan(s: int, t: int, b: int, dtype: torch.dtype,
+                equilibrate: bool = False, kernel: str | None = None,
+                smem_limit: int = H100_SMEM_LIMIT,
+                sm_count: int = H100_SM_COUNT) -> dict:
+    """Which kernel solves ``S`` systems of ``T`` stages of width ``B`` and
+    how it is launched.
+
+    ``kernel`` is chosen by width unless given: ``"warp"`` for B <= 32, else
+    ``"wide"``. The warp kernel spreads the systems over the SMs one warp
+    each before it packs up to 4 warps into a block, and keeps every
+    stage's ``X_k | y_k`` in shared memory where that fits the limit, else
+    in global scratch. Raises ``ValueError`` for a width no kernel holds.
+    """
+    elem = torch.empty((), dtype=dtype).element_size()
+    if kernel is None:
+        kernel = "warp" if b <= WARP_MAX_B else "wide"
+    if kernel == "wide":
+        need = elem * wide_elems(b, equilibrate)
+        if need > smem_limit:
+            b_max = b
+            while elem * wide_elems(b_max, equilibrate) > smem_limit:
+                b_max -= 1
+            raise ValueError(
+                f"block width B={b} needs {need} bytes of shared memory per "
+                f"block; this device allows {smem_limit}, so B <= {b_max} in "
+                f"{dtype}{' equilibrated' if equilibrate else ''}")
+        return dict(kernel="wide", blocks=s, threads=WIDE_THREADS,
+                    smem_bytes=need)
+    if kernel != "warp":
+        raise ValueError(f"unknown kernel {kernel!r}")
+    if b > WARP_MAX_B:
+        raise ValueError(f"the warp kernel holds B <= {WARP_MAX_B}, got {b}")
+    bp = next(w for w in WARP_WIDTHS if b <= w)
+    warps = max(1, min(WARP_MAX_WARPS, -(-s // sm_count)))
+    for hist_in_smem in (True, False):
+        for n_w in range(warps, 0, -1):
+            need = n_w * elem * warp_elems(b, bp, t, equilibrate, hist_in_smem)
+            if need <= smem_limit:
+                return dict(kernel="warp", bp=bp, warps=n_w,
+                            blocks=-(-s // n_w), threads=32 * n_w,
+                            hist_in_smem=hist_in_smem, smem_bytes=need)
+    raise ValueError(f"B={b}, T={t} in {dtype} needs {need} bytes of shared "
+                     f"memory per warp; this device allows {smem_limit}")
+
+
+# -- the libraries -----------------------------------------------------------
+
+def library_name(kernel: str, dtype: torch.dtype) -> str:
+    """The library that holds ``kernel`` for ``dtype``."""
+    if kernel == "wide":
+        return "block_thomas_wide"
+    return "block_thomas_warp_" + ("f64" if dtype == torch.float64 else "f32")
+
+
+def _lib(name: str):
+    lib = cuda_build.load(name, *LIBRARIES[name])
     if not getattr(lib, "_typed", False):
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.block_thomas_f64, lib.block_thomas_f32):
-            fn.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-            fn.restype = i32
-        lib.block_thomas_smem_bytes.argtypes = [i32, i32]
-        lib.block_thomas_smem_bytes.restype = ctypes.c_size_t
+        ptr, i32, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+        if name == "block_thomas_wide":
+            lib.block_thomas_wide.argtypes = [ptr] * 6 + [i32] * 6 + [sz, ptr]
+            lib.block_thomas_wide.restype = i32
+        else:
+            lib.block_thomas_warp.argtypes = (
+                [ptr] * 5 + [i32] * 8 + [sz, ptr])
+            lib.block_thomas_warp.restype = i32
+            lib.block_thomas_warp_profile.argtypes = (
+                [ptr] * 6 + [i32] * 6 + [sz, ptr])
+            lib.block_thomas_warp_profile.restype = i32
+            lib.block_thomas_warp_elem_bytes.argtypes = []
+            lib.block_thomas_warp_elem_bytes.restype = i32
+            want = 8 if name.endswith("f64") else 4
+            if lib.block_thomas_warp_elem_bytes() != want:
+                raise RuntimeError(f"{name} was built for another type")
         lib._typed = True
     return lib
 
 
-def build() -> str:
-    """Build (or find) the kernel's library; returns the compiler output."""
-    _, log = cuda_build.build("block_thomas", SOURCES)
-    _lib()
-    return log
+def build() -> dict:
+    """Build (or find) every library, the compilers running side by side;
+    returns each library's compiler output (``-Xptxas -v``)."""
+    logs = cuda_build.build_all(LIBRARIES)
+    for name in LIBRARIES:
+        _lib(name)
+    return logs
+
+
+def device_limits(device) -> tuple[int, int]:
+    """(shared memory a block may opt in to, SM count) of a CUDA device,
+    asked once per device."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    lim = _limits.get(index)
+    if lim is None:
+        props = torch.cuda.get_device_properties(index)
+        lim = _limits[index] = (
+            getattr(props, "shared_memory_per_block_optin", H100_SMEM_LIMIT),
+            props.multi_processor_count)
+    return lim
 
 
 def _check(diag, upper, rhs):
     if rhs.dim() != 3:
         raise ValueError(f"rhs must be [S, T, B], got {tuple(rhs.shape)}")
     s, t, b = rhs.shape
+    if min(s, t, b) < 1:
+        raise ValueError(f"rhs must be non-empty, got {tuple(rhs.shape)}")
     if tuple(diag.shape) != (s, t, b, b):
         raise ValueError(f"diag must be {(s, t, b, b)}, got {tuple(diag.shape)}")
     if (upper.dim() != 4 or upper.shape[0] != s or upper.shape[1] not in
@@ -123,51 +303,87 @@ def _check(diag, upper, rhs):
                          f"{diag.device}, {upper.device}, {rhs.device}")
 
 
-def block_thomas_solve(diag: torch.Tensor, upper: torch.Tensor,
-                       rhs: torch.Tensor) -> torch.Tensor:
-    """Solve ``S`` symmetric block-tridiagonal systems (see module doc).
+def launch_kernel(diag: torch.Tensor, upper: torch.Tensor, rhs: torch.Tensor,
+                  equilibrate: bool = False, kernel: str | None = None,
+                  profile: bool = False):
+    """Launch one kernel on CUDA tensors (on the current stream) and return
+    its output; ``kernel`` overrides the choice by width, for measurements.
 
-    CPU tensors go through :func:`block_thomas_plain`; CUDA tensors launch
-    the kernel (one thread block per system) on the current stream, or raise.
-    Under stream capture the launch is recorded into the graph and counted
-    in :data:`captured`; :func:`replay` counts it when it runs.
+    ``profile=True`` (warp kernel, B <= 20, float64 unequilibrated or
+    float32 equilibrated) also returns ``[S, 6]`` int64 clocks per system
+    spent in (load, equilibrate, elimination, refinement, storing
+    ``X_k | y_k`` and the product for the next stage, back substitution).
+    Under stream capture the launch is recorded into the graph and
+    counted in :data:`captured`; :func:`replay` counts it when it runs.
     """
-    global launches, captured
     _check(diag, upper, rhs)
-    if rhs.device.type == "cpu":
-        return block_thomas_plain(diag, upper, rhs)
     if rhs.device.type != "cuda":
         raise ValueError(f"no block-Thomas kernel for device {rhs.device}")
     for name, x in (("diag", diag), ("upper", upper), ("rhs", rhs)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     s, t, b = rhs.shape
-    lib = _lib()
     elem = rhs.element_size()
-    props = torch.cuda.get_device_properties(rhs.device)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    need = lib.block_thomas_smem_bytes(b, elem)
-    if need > limit:
-        b_max = b
-        while lib.block_thomas_smem_bytes(b_max, elem) > limit:
-            b_max -= 1
-        raise ValueError(
-            f"block width B={b} needs {need} bytes of shared memory per block; "
-            f"this device allows {limit}, so B <= {b_max} in {rhs.dtype}")
+    smem_limit, sm_count = device_limits(rhs.device)
+    plan = kernel_plan(s, t, b, rhs.dtype, equilibrate, kernel, smem_limit,
+                       sm_count)
+    name = plan["kernel"]
+    lib = _lib(library_name(name, rhs.dtype))
     out = torch.empty_like(rhs)
-    xs = torch.empty_like(diag)
-    ys = torch.empty_like(rhs)
-    fn = lib.block_thomas_f64 if rhs.dtype == torch.float64 \
-        else lib.block_thomas_f32
+    prof = None
     with torch.cuda.device(rhs.device):
         stream = torch.cuda.current_stream(rhs.device).cuda_stream
-        rc = fn(diag.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
-                out.data_ptr(), xs.data_ptr(), ys.data_ptr(),
-                s, t, b, upper.shape[1], stream)
+        if name == "warp":
+            hist = None if plan["hist_in_smem"] else torch.empty(
+                (s, t, b, plan["bp"] + 1), dtype=rhs.dtype, device=rhs.device)
+            args = (diag.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
+                    out.data_ptr(), None if hist is None else hist.data_ptr())
+            if profile:
+                if plan["bp"] != WARP_WIDTHS[0] or equilibrate != (
+                        rhs.dtype == torch.float32):
+                    raise ValueError(
+                        "the profiling kernel is built for B <= 20, float64 "
+                        "unequilibrated or float32 equilibrated")
+                prof = torch.zeros((s, 6), dtype=torch.int64,
+                                   device=rhs.device)
+                rc = lib.block_thomas_warp_profile(
+                    *args, prof.data_ptr(), s, t, b, upper.shape[1],
+                    plan["warps"], int(plan["hist_in_smem"]),
+                    plan["smem_bytes"], stream)
+            else:
+                rc = lib.block_thomas_warp(
+                    *args, s, t, b, upper.shape[1], int(equilibrate),
+                    plan["bp"], plan["warps"], int(plan["hist_in_smem"]),
+                    plan["smem_bytes"], stream)
+        else:
+            if profile:
+                raise ValueError("only the warp kernel has a profiling build")
+            xs = torch.empty_like(diag)
+            ys = torch.empty_like(rhs)
+            rc = lib.block_thomas_wide(
+                diag.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
+                out.data_ptr(), xs.data_ptr(), ys.data_ptr(), s, t, b,
+                upper.shape[1], elem, int(equilibrate), plan["smem_bytes"],
+                stream)
     if rc != 0:
-        raise RuntimeError(f"block_thomas kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"block_thomas_{name} launch failed: code {rc} "
+                           f"(a cudaError, or -1 arguments, -2 layout)")
     if torch.cuda.is_current_stream_capturing():
-        captured += 1
+        captured[name] += 1
     else:
-        launches += 1
-    return out
+        _count({name: 1})
+    return (out, prof) if profile else out
+
+
+def block_thomas_solve(diag: torch.Tensor, upper: torch.Tensor,
+                       rhs: torch.Tensor,
+                       equilibrate: bool = False) -> torch.Tensor:
+    """Solve ``S`` symmetric block-tridiagonal systems (see module doc).
+
+    CPU tensors go through :func:`block_thomas_plain`; CUDA tensors launch
+    the kernel :func:`kernel_plan` names (:func:`launch_kernel`), or raise.
+    """
+    if rhs.device.type == "cpu":
+        _check(diag, upper, rhs)
+        return block_thomas_plain(diag, upper, rhs, equilibrate)
+    return launch_kernel(diag, upper, rhs, equilibrate)

@@ -1,4 +1,6 @@
-"""The block-Thomas CUDA kernel against its plain PyTorch version, on a card.
+"""The block-Thomas CUDA kernels against their plain PyTorch version, on a
+card: the warp kernel (B <= 32) and the wide kernel (above, and forced onto
+the narrow shapes), plain and equilibrated.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs where only the port is installed:
@@ -6,15 +8,17 @@ no JAX, so it also runs where only the port is installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances (relative to the solution's scale): 1e-10 in float64, 1e-4 in
-float32 — both sides run the same recursion with the same pivot choice and
-pivot floor; only the order of summation inside each product differs.
+float32 — both sides run the same recursion with the same pivot choice,
+pivot floor, scaling and refinement; only the order of summation inside each
+product differs.
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import KINDS, SHAPES, make_system
-from dlp_admm_torch.config import SolverConfig
+from chip_smoke import SHAPES, VARIANTS, WIDE_SHAPES, make_system
+from dlp_admm_torch.config import ObcaConfig, SolverConfig
+from dlp_admm_torch.models.obca import ConsensusObcaPlanner
 from dlp_admm_torch.solvers import ip_staged, thomas
 
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
@@ -33,22 +37,96 @@ def _system(seed, shape, kind, dtype, dev):
                                       kind))
 
 
+def _shape_id(s):
+    return "x".join(map(str, s))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_kernel_matches_plain(cuda, shape, kind, dtype):
+@pytest.mark.parametrize("kind,equilibrate", VARIANTS,
+                         ids=[f"{k}{'-eq' if e else ''}" for k, e in VARIANTS])
+@pytest.mark.parametrize("shape", SHAPES + WIDE_SHAPES + ((3, 5, 26),),
+                         ids=_shape_id)
+def test_kernel_matches_plain(cuda, shape, kind, equilibrate, dtype):
     d, u, r = _system(5, shape, kind, dtype, cuda)
-    before = thomas.launches
-    got = thomas.block_thomas_solve(d, u, r)
-    assert thomas.launches == before + 1
-    want = thomas.block_thomas_plain(d, u, r)
+    name = "warp" if shape[2] <= 32 else "wide"
+    before = thomas.launches_by_kernel[name]
+    total = thomas.launches
+    got = thomas.block_thomas_solve(d, u, r, equilibrate)
+    assert thomas.launches_by_kernel[name] == before + 1
+    assert thomas.launches == total + 1
+    want = thomas.block_thomas_plain(d, u, r, equilibrate)
     torch.cuda.synchronize()
     assert got.shape == r.shape and got.dtype == dtype
     assert bool(torch.isfinite(got).all())
     rel = float((got - want).abs().max() / want.abs().max())
     assert rel < TOL[dtype], rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("kind,equilibrate", VARIANTS,
+                         ids=[f"{k}{'-eq' if e else ''}" for k, e in VARIANTS])
+@pytest.mark.parametrize("shape", SHAPES[:2], ids=_shape_id)
+def test_wide_kernel_on_narrow_shapes(cuda, shape, kind, equilibrate, dtype):
+    """The block-per-system kernel holds any width up to its shared-memory
+    limit; forced onto the flagship's widths it agrees with the plain
+    version as the warp kernel does."""
+    d, u, r = _system(8, shape, kind, dtype, cuda)
+    before = dict(thomas.launches_by_kernel)
+    got = thomas.launch_kernel(d, u, r, equilibrate, kernel="wide")
+    assert thomas.launches_by_kernel == dict(before, wide=before["wide"] + 1)
+    want = thomas.block_thomas_plain(d, u, r, equilibrate)
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < TOL[dtype], rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_profiling_build_gives_the_same_numbers(cuda, dtype):
+    eq = dtype == torch.float32
+    d, u, r = _system(9, (2, 7, 19), "kkt_saddle", dtype, cuda)
+    got, clocks = thomas.launch_kernel(d, u, r, eq, profile=True)
+    want = thomas.launch_kernel(d, u, r, eq)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert clocks.shape == (2, 6) and bool((clocks.sum(1) > 0).all())
+    assert bool((clocks[:, 1] > 0).all()) == eq      # equilibration phase
+    with pytest.raises(ValueError, match="profiling kernel"):
+        thomas.launch_kernel(d, u, r, not eq, profile=True)
+
+
+@pytest.mark.cuda
+def test_long_chain_keeps_its_history_in_scratch(cuda):
+    """T * B past the shared memory a warp may use: X_k | y_k go through
+    global scratch, with the same numbers."""
+    shape = (2, 400, 32)
+    assert not thomas.kernel_plan(*shape, torch.float64)["hist_in_smem"]
+    d, u, r = _system(10, shape, "diag_dominant", torch.float64, cuda)
+    got = thomas.block_thomas_solve(d, u, r)
+    want = thomas.block_thomas_plain(d, u, r)
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < TOL[torch.float64], rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("equilibrate", [False, True])
+def test_singular_block_is_not_finite_garbage(cuda, equilibrate):
+    """A block with a zero row and column: the floored pivot gives values
+    of the order of 1e30 or non-finite ones, which the staged solver's guard
+    and solve verification reject."""
+    d, u, r = _system(11, (2, 1, 19), "kkt_saddle", torch.float64, cuda)
+    d[0, 0, 4, :] = 0.0
+    d[0, 0, :, 4] = 0.0
+    got = thomas.block_thomas_solve(d, u, r, equilibrate)
+    torch.cuda.synchronize()
+    assert not bool((got[0].abs() < 1e20).all())
+    assert bool(torch.isfinite(got[1]).all())         # the other system
 
 
 @pytest.mark.cuda
@@ -66,6 +144,8 @@ def test_kernel_pivot_floor(cuda):
     r = torch.ones(1, 2, 3, dtype=torch.float64, device=cuda)
     got = thomas.block_thomas_solve(z, z, r)
     torch.testing.assert_close(got, thomas.block_thomas_plain(z, z, r))
+    got = thomas.block_thomas_solve(z, z, r, equilibrate=True)
+    torch.testing.assert_close(got, thomas.block_thomas_plain(z, z, r, True))
 
 
 def _tracking_nlp():
@@ -119,6 +199,41 @@ def test_graphed_ip_loop_matches_eager_cpu(cuda):
     for name in ("w", "y_link", "z", "s"):
         torch.testing.assert_close(getattr(got, name).cpu(),
                                    getattr(want, name), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_graphed_ip_loop_float32(cuda):
+    """The float32 solve on the card (equilibrated kernel, three launches a
+    trip) against the eager CPU loop on the plain version: float32 rounding
+    of two kinds through some ten trips that end at ``ip_tol=1e-4``."""
+    snlp, w0, p = _tracking_nlp()
+    w0, p = w0.float(), {k: v.float() for k, v in p.items()}
+    cfg = SolverConfig(ip_iters=40, ip_tol=1e-4)
+    want = ip_staged.solve_staged(snlp, w0, p, cfg)
+    before = thomas.launches
+    got = ip_staged.solve_staged(snlp, w0.to(cuda),
+                                 {k: v.to(cuda) for k, v in p.items()}, cfg)
+    torch.cuda.synchronize()
+    assert got.w.dtype == torch.float32
+    assert thomas.launches - before == got.block_solves
+    assert got.block_solves == 3 * int(got.iterations.max())
+    assert bool(got.converged.all()) and bool(want.converged.all())
+    assert int((got.iterations.cpu() - want.iterations).abs().max()) <= 1
+    for name in ("w", "y_link", "z", "s"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(want, name), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_planner_runs_on_the_card_by_default(cuda):
+    pl = ConsensusObcaPlanner(ObcaConfig(horizon=8, max_admm_iters=1),
+                              scfg=SolverConfig(ip_iters=40, ip_tol=1e-4),
+                              dtype=torch.float32)
+    assert pl.device.type == "cuda" and pl.refs.device.type == "cuda"
+    states, its, _, _ = pl.run(n_steps=1)
+    assert states.shape == (2, 2, 5) and np.all(np.isfinite(states))
+    assert all(x.device.type == "cuda" and x.dtype == torch.float32
+               for x in pl.carry[1])
 
 
 @pytest.mark.cuda

@@ -6,6 +6,12 @@ lane and as a batch of lanes.
 Tolerance: the same algorithm on the same float64 data; the KKT blocks are
 solved by block Thomas without pivoting here and with pivoted LU in JAX, so
 iterates agree to rounding — solutions within 1e-9, equal iteration counts.
+
+In float32 both sides equilibrate and refine each stage solve and refine the
+block-tridiagonal solve twice (three block solves a trip); each carries
+float32 rounding of its own through some ten IP trips that end at
+``ip_tol=1e-4``, so solutions agree within 2e-3 (the tolerance of the JAX
+package's own float32 pin) and iteration counts within one trip.
 """
 import jax
 import jax.numpy as jnp
@@ -28,8 +34,12 @@ U_MAX = 0.8
 TOL = 1e-9
 
 
-def _params(x_inits):
+def _params(x_inits, dtype=np.float64):
     """Per-lane, per-stage parameters (numpy) for initial states [S, NX]."""
+    return {k: v.astype(dtype) for k, v in _params64(x_inits).items()}
+
+
+def _params64(x_inits):
     s = len(x_inits)
     first = np.zeros((s, T_STAGES))
     first[:, 0] = 1.0
@@ -41,11 +51,12 @@ def _params(x_inits):
                                      (s, T_STAGES, NX)).copy())
 
 
-def _spec(xp, stage_eq=False, link=True):
+def _spec(xp, stage_eq=False, link=True, dtype=np.float64):
     """The tracking NLP written once for both frameworks (``xp`` = jnp or
     torch); ``stage_eq`` pins u on the last stage, ``link=False`` drops the
     dynamics rows."""
-    a_dyn, b_dyn = xp.asarray(A_DYN), xp.asarray(B_DYN)
+    a_dyn = xp.asarray(A_DYN.astype(dtype))
+    b_dyn = xp.asarray(B_DYN.astype(dtype))
 
     def f_stage(w, p):
         x, u = w[:NX], w[NX:]
@@ -70,10 +81,11 @@ def _spec(xp, stage_eq=False, link=True):
     return f_stage, ce_link, ce_stage, ci_stage
 
 
-def _solve_both(x_inits, ip_tol, **spec_kw):
-    p = _params(x_inits)
+def _solve_both(x_inits, ip_tol, dtype=np.float64, **spec_kw):
+    p = _params(x_inits, dtype)
     s = len(x_inits)
-    w0 = np.zeros((s, T_STAGES, B_W))
+    w0 = np.zeros((s, T_STAGES, B_W), dtype)
+    spec_kw["dtype"] = dtype
     jsol = jax.vmap(lambda w, pp: jip.solve_staged(
         jip.StagedNLP(*_spec(jnp, **spec_kw)), w, pp,
         JSolverConfig(ip_iters=40, ip_tol=ip_tol)))(
@@ -135,3 +147,58 @@ def test_lanes_freeze_independently():
     _, alone = _solve_both([[-0.9, 0.7]], 1e-8)
     torch.testing.assert_close(both.w[1:], alone.w, rtol=0, atol=1e-13)
     assert int(both.iterations[1]) == int(alone.iterations[0])
+
+
+# -- float32: equilibrated stage solves, two refinement passes ---------------
+
+@pytest.mark.parametrize("spec_kw", [dict(), dict(stage_eq=True),
+                                     dict(link=False)],
+                         ids=["tracking", "stage_eq", "no_link"])
+def test_float32_matches_jax(spec_kw):
+    jsol, tsol = _solve_both([[1.0, 0.0], [0.4, -0.3]], 1e-4,
+                             dtype=np.float32, **spec_kw)
+    assert tsol.w.dtype == torch.float32
+    assert np.asarray(jsol.w).dtype == np.float32
+    # the link-free problem stalls at a KKT error of 0.8 in float32 on both
+    # sides (every trip's step is rejected): the same verdict is the parity
+    np.testing.assert_array_equal(tsol.converged.numpy(),
+                                  np.asarray(jsol.converged))
+    assert bool(tsol.converged.all()) == ("link" not in spec_kw)
+    np.testing.assert_allclose(tsol.kkt_error.numpy(),
+                               np.asarray(jsol.kkt_error), rtol=0, atol=2e-3)
+    assert np.abs(tsol.iterations.numpy()
+                  - np.asarray(jsol.iterations)).max() <= 1
+    for name in ("w", "y_link", "y_stage", "z", "s"):
+        np.testing.assert_allclose(getattr(tsol, name).numpy(),
+                                   np.asarray(getattr(jsol, name)),
+                                   rtol=2e-3, atol=2e-3, err_msg=name)
+    # one solve and two refinements per trip
+    assert tsol.block_solves == 3 * int(tsol.iterations.max())
+
+
+def test_float32_solves_are_equilibrated(monkeypatch):
+    """The staged solver asks the block-Thomas wrapper for the equilibrated
+    variant exactly when the data is not float64."""
+    seen = []
+    plain = tip.thomas.block_thomas_solve
+
+    def spy(diag, upper, rhs, equilibrate=False):
+        seen.append((rhs.dtype, equilibrate))
+        return plain(diag, upper, rhs, equilibrate)
+
+    monkeypatch.setattr(tip.thomas, "block_thomas_solve", spy)
+    for dtype in (np.float64, np.float32):
+        _solve_both([[1.0, 0.0]], 1e-4, dtype=dtype)
+    assert {(torch.float64, False), (torch.float32, True)} == set(seen)
+
+
+def test_float32_literals_behave_as_in_jax():
+    """``clamp(s, min=1e-300)`` in the merit's barrier underflows to a clamp
+    at 0 in float32 on both sides (the slacks are kept >= 1e-12 elsewhere);
+    the 1e-12 floors and ``ip_tol / 10`` are float32 normals."""
+    z = np.zeros(2, np.float32)
+    assert float(torch.clamp(torch.as_tensor(z), min=1e-300)[0]) == 0.0
+    assert float(jnp.clip(jnp.asarray(z), 1e-300, None)[0]) == 0.0
+    for lit in (1e-12, 1e-5, 1e-8, 1e-9):
+        got = float(torch.clamp(torch.as_tensor(z), min=lit)[0])
+        assert got == float(np.float32(lit)) > 0.0

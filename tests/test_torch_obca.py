@@ -7,6 +7,13 @@ keep the CPU cost small. Both sides run the same algorithm on the same
 data; the KKT blocks are factored without pivoting here and with pivoted LU
 in JAX, so results agree to rounding: states and carries within 1e-9,
 equal ADMM iteration counts.
+
+In float32 (the flagship's second profile: ``ip_tol=1e-4``,
+``prox_tau_max=1e9``, equilibrated stage solves, two refinement passes) each
+side carries float32 rounding of its own through every IP trip, and the IP
+solves stop at a KKT error of 1e-4, so two steps agree within 2e-3 on
+states of up to 20 (m, m/s). The JAX float32 planner runs with JAX's 64-bit
+mode off (``jax.enable_x64(False)``), as it does on its accelerator.
 """
 import ast
 import importlib.util
@@ -15,6 +22,9 @@ import os
 import subprocess
 import sys
 
+import inspect
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +33,7 @@ import torch
 from dlp_admm_torch import config as tcfg
 from dlp_admm_torch.interop import bar_state_from_numpy, bar_state_to_numpy
 from dlp_admm_torch.models.obca import ConsensusObcaPlanner as TPlanner
+from dlp_admm_torch.models.obca import resolve_device
 from dlp_admm_torch.mpc import run_obca as t_run_obca
 from dlp_admm_tpu import config as jcfg
 from dlp_admm_tpu.models.obca import BarState as JBarState
@@ -211,16 +222,113 @@ def test_reference_window_clamps_like_dynamic_slice(planners):
     dict(edge_mode="joint"), dict(edge_mode="per_step"),
     dict(use_staged=False), dict(branch_commit=True),
     dict(prox_adaptive=True), dict(lamb_ij_hysteresis=True),
-    dict(edge_prox=1.0), dict(dtype=torch.float32)],
+    dict(edge_prox=1.0)],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPlanner(**kw)
+        TPlanner(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int64])
+def test_other_dtypes_raise(dtype):
+    with pytest.raises(TypeError, match="float64 or float32"):
+        TPlanner(device="cpu", dtype=dtype)
 
 
 def test_run_obca_rejects_unported_formulations():
     with pytest.raises(NotImplementedError):
         t_run_obca(tcfg.Formulation.CENTRALIZED, n_steps=1)
+
+
+# -- float32 -----------------------------------------------------------------
+
+F32_OCFG = dict(OCFG, max_admm_iters=2)
+F32_SCFG = dict(ip_iters=12, ip_tol=1e-4)
+F32_PLANNER = dict(PLANNER, prox_tau_max=1.0e9)
+
+
+def test_float32_two_steps_match_jax():
+    """Two MPC steps of the float32 profile (ADMM cap 2 and 12 IP trips, to
+    keep the CPU cost small) against the JAX planner."""
+    with jax.enable_x64(False):
+        jpl = JPlanner(jcfg.ObcaConfig(**F32_OCFG),
+                       scfg=jcfg.SolverConfig(**F32_SCFG), dtype=jnp.float32,
+                       **F32_PLANNER)
+        j_states, j_its, j_res, _ = jpl.run(n_steps=2)
+    tpl = TPlanner(tcfg.ObcaConfig(**F32_OCFG),
+                   scfg=tcfg.SolverConfig(**F32_SCFG), dtype=torch.float32,
+                   device="cpu", **F32_PLANNER)
+    t_states, t_its, t_res, _ = tpl.run(n_steps=2)
+    assert t_states.dtype == np.float32 == np.asarray(j_states).dtype
+    st, bs = tpl.carry
+    assert st.dtype == torch.float32 and all(
+        x.dtype == torch.float32 for x in bs)
+    np.testing.assert_array_equal(t_its, j_its)
+    _close(t_states, j_states, "states", tol=2e-3)
+    # three block solves per IP trip: the solve and two refinements
+    assert tpl.block_solves > 0 and tpl.block_solves % 3 == 0
+
+
+def test_float32_prox_clamp_and_growth_follow_dtype():
+    kw = dict(local_prox=700.0, prox_growth=1.5, device="cpu")
+    f32 = TPlanner(dtype=torch.float32, prox_tau_max=1.0e9, **kw)
+    f64 = TPlanner(dtype=torch.float64, **kw)
+    assert f32._prox_tau(0) == f64._prox_tau(0) == 700.0
+    assert f32._prox_tau(49) == 1.0e9 and f64._prox_tau(49) == 3.0e10
+    # grown in the planner's dtype, as the JAX planner does
+    assert f32._prox_tau(30) == float(
+        np.float32(700.0) * np.float32(1.5) ** np.float32(30))
+    assert f64._prox_tau(30) == 700.0 * 1.5 ** 30
+    # and every constant tensor of the planner has its dtype
+    assert all(t.dtype == torch.float32 for t in f32._box)
+    assert f32.refs.dtype == torch.float32
+    assert all(x.dtype == torch.float32 for x in f32.create_bar_state())
+
+
+def test_committed_float32_fixture():
+    """The committed JAX float32 run (``tools/make_torch_fixture.py
+    --profile f32``) is the profile the tool names, and passes the JAX
+    bench's float32 gate (at least 39 of 42 steps under the residual
+    thresholds, minimum centre distance above 3.8 m)."""
+    tool = _fixture_tool()
+    ref = np.load(FIXTURE.replace("f64", "f32"))
+    assert json.loads(str(ref["profile"])) == json.loads(
+        json.dumps(tool.PROFILES["f32"], sort_keys=True))
+    assert ref["states"].shape == (43, 2, 5) and len(ref["iterations"]) == 42
+    assert ref["states"].dtype == np.float32
+    res_ok = (ref["primal"] <= 0.011) & (ref["dual"] <= 0.011)
+    p = ref["states"][..., :2]
+    assert int(res_ok.sum()) >= 39
+    assert np.linalg.norm(p[:, 0] - p[:, 1], axis=-1).min() > 3.8
+
+
+def test_interop_carries_float32():
+    tpl = _port_planner(dtype=torch.float32, prox_tau_max=1.0e9)
+    arrays = bar_state_to_numpy(tpl.create_bar_state())
+    assert all(a.dtype == np.float32 for a in arrays.values())
+    back = bar_state_from_numpy(arrays, dtype=torch.float32)
+    assert all(x.dtype == torch.float32 for x in back)
+    for k, a in arrays.items():
+        np.testing.assert_array_equal(getattr(back, k).numpy(), a)
+
+
+# -- the default device ------------------------------------------------------
+
+def test_default_device_is_the_card_and_nothing_falls_back():
+    """With no ``device`` argument the entry points run on the CUDA card;
+    where there is none they raise instead of running on the CPU."""
+    for fn in (TPlanner.__init__, t_run_obca):
+        assert inspect.signature(fn).parameters["device"].default is None
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        assert TPlanner().refs.device.type == "cuda"
+    else:
+        for ask in (resolve_device, TPlanner, lambda: TPlanner(device="cuda"),
+                    lambda: t_run_obca(n_steps=1),
+                    lambda: t_run_obca(n_steps=1, dtype=torch.float32)):
+            with pytest.raises(RuntimeError, match="CUDA card"):
+                ask()
 
 
 # -- the port stands alone ---------------------------------------------------

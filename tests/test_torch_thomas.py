@@ -11,10 +11,21 @@ References:
   stage, float64): the same solution of a well-posed system, reached by
   another elimination — 1e-9 relative on diagonally dominant systems and on
   saddle systems with a zero leading block (which need row swaps), 1e-7 on
-  KKT-style saddle systems (condition ~1e8 from the -1e-8 blocks).
+  KKT-style saddle systems (condition ~1e8 from the -1e-8 blocks);
+* the same vmapped solve in float32, where it equilibrates and refines each
+  stage solve (``linalg.equil_solve``), against the plain version with
+  ``equilibrate=True``: the same scaling and refinement around another
+  elimination (pivoted Gauss-Jordan against LU), so both carry float32
+  rounding of their own — solutions within 1e-5 relative where the system
+  is well conditioned; on badly scaled systems (condition ~1e9, where a
+  float32 solution is not determined to that level) the componentwise
+  scaled residual ``|Ax - r| / (|A||x| + |r|)``, below 2e-6 and no more
+  than 4 times the JAX solve's.
 
-The CUDA kernel itself is held against the plain version in
-``tests/test_torch_cuda.py``, which imports no JAX so it runs on the card.
+The launch layouts of the two kernels (:func:`thomas.kernel_plan`) are plain
+Python and are checked here. The CUDA kernels themselves are held against
+the plain version in ``tests/test_torch_cuda.py``, which imports no JAX so
+it runs on the card.
 """
 import jax
 import jax.numpy as jnp
@@ -117,3 +128,137 @@ def test_wrapper_rejects_bad_inputs():
     # no kernel, no fallback for other devices
     with pytest.raises(ValueError, match="no block-Thomas kernel"):
         thomas.block_thomas_solve(*(a.to("meta") for a in (d, u, r)))
+
+
+# -- the equilibrated variant (the float32 stage solve) ----------------------
+
+def _scaled_residual(diag, upper, rhs, x):
+    """max over systems and rows of |Ax - r| / (|A||x| + |r|), in float64."""
+    worst = 0.0
+    for s in range(diag.shape[0]):
+        a = _dense(diag[s].astype(np.float64), upper[s].astype(np.float64))
+        xs, rs = x[s].reshape(-1).astype(np.float64), rhs[s].reshape(-1)
+        res = np.abs(a @ xs - rs) / (np.abs(a) @ np.abs(xs) + np.abs(rs))
+        worst = max(worst, float(res.max()))
+    return worst
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 19), (1, 7, 20), (2, 4, 40)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", ["diag_dominant", "kkt_saddle",
+                                  "badly_scaled"])
+def test_equilibrated_plain_matches_jax_float32(shape, kind):
+    diag, upper, rhs = (a.astype(np.float32)
+                        for a in make_system(8, *shape, kind=kind))
+    want = np.asarray(jax.vmap(jax_thomas)(
+        jnp.asarray(diag), jnp.asarray(upper), jnp.asarray(rhs)))
+    got = thomas.block_thomas_solve(
+        *(torch.as_tensor(a) for a in (diag, upper, rhs)),
+        equilibrate=True).numpy()
+    assert got.dtype == np.float32 and want.dtype == np.float32
+    if kind == "badly_scaled":
+        res, res_jax = (_scaled_residual(diag, upper, rhs, x)
+                        for x in (got, want))
+        assert res < 2e-6 and res < 4 * res_jax, (res, res_jax)
+    else:
+        assert _rel(got, want) < 1e-5, _rel(got, want)
+
+
+def test_equilibration_matters_on_badly_scaled_float32():
+    """The unequilibrated float32 elimination leaves a scaled residual an
+    order of magnitude above the equilibrated one on rows of 1e6 beside
+    rows of 1 (so the test above could not pass without the scaling)."""
+    diag, upper, rhs = (a.astype(np.float32)
+                        for a in make_system(8, 2, 4, 40, "badly_scaled"))
+    args = [torch.as_tensor(a) for a in (diag, upper, rhs)]
+    raw = thomas.block_thomas_plain(*args).numpy()
+    eq = thomas.block_thomas_plain(*args, equilibrate=True).numpy()
+    assert (_scaled_residual(diag, upper, rhs, raw)
+            > 10 * _scaled_residual(diag, upper, rhs, eq))
+
+
+def test_equilibrated_plain_float64_solves_and_floors():
+    diag, upper, rhs = make_system(9, 2, 5, 12, "badly_scaled")
+    got = thomas.block_thomas_plain(
+        *(torch.as_tensor(a) for a in (diag, upper, rhs)),
+        equilibrate=True).numpy()
+    assert _scaled_residual(diag, upper, rhs, got) < 1e-14
+    # a singular block: the row scale and the pivots are floored, and the
+    # output is not a finite solution the caller could mistake for one
+    z = torch.zeros(1, 2, 3, 3, dtype=torch.float64)
+    out = thomas.block_thomas_plain(z, z, torch.ones(1, 2, 3,
+                                                     dtype=torch.float64),
+                                    equilibrate=True)
+    assert not bool((out.abs() < 1e20).all())
+
+
+# -- launch layouts (no card needed) -----------------------------------------
+
+@pytest.mark.parametrize("b,kernel,bp", [(1, "warp", 20), (19, "warp", 20),
+                                         (20, "warp", 20), (21, "warp", 32),
+                                         (32, "warp", 32), (33, "wide", None),
+                                         (61, "wide", None)])
+def test_kernel_plan_dispatches_on_width(b, kernel, bp):
+    plan = thomas.kernel_plan(2, 7, b, torch.float64)
+    assert plan["kernel"] == kernel
+    assert plan["smem_bytes"] <= thomas.H100_SMEM_LIMIT
+    if kernel == "warp":
+        assert plan["bp"] == bp and plan["threads"] == 32 * plan["warps"]
+        assert plan["blocks"] * plan["warps"] >= 2
+    else:
+        assert plan["blocks"] == 2 and plan["threads"] == thomas.WIDE_THREADS
+
+
+def test_kernel_plan_spreads_systems_before_it_packs_warps():
+    one = thomas.kernel_plan(2, 7, 19, torch.float64)
+    assert (one["warps"], one["blocks"]) == (1, 2)
+    many = thomas.kernel_plan(256, 7, 19, torch.float64)
+    assert (many["warps"], many["blocks"]) == (2, 128)
+    full = thomas.kernel_plan(4096, 7, 19, torch.float32)
+    assert full["warps"] == thomas.WARP_MAX_WARPS and full["blocks"] == 1024
+
+
+def test_kernel_plan_shared_memory_layout():
+    # flagship local shape in float64: D_k, r_k, two U_k, X_k|y_k and the
+    # seven stages' X_k|y_k, rows padded to the width bound 20 plus y
+    plan = thomas.kernel_plan(2, 7, 19, torch.float64)
+    assert plan["hist_in_smem"]
+    assert plan["smem_bytes"] == 8 * (3 * 361 + 19 + 8 * 19 * 21)
+    eq = thomas.kernel_plan(2, 7, 19, torch.float32, equilibrate=True)
+    assert eq["smem_bytes"] == 4 * (3 * 361 + 19 + 8 * 19 * 21 + 19 * 41)
+    # a long chain no longer fits beside the tile: its X_k|y_k go to scratch
+    long = thomas.kernel_plan(1, 400, 32, torch.float64)
+    assert not long["hist_in_smem"]
+    assert long["smem_bytes"] == 8 * thomas.warp_elems(32, 32, 400, False,
+                                                       False)
+    # the wide kernel: the equilibrated variant keeps the scaled system too
+    w = thomas.kernel_plan(1, 7, 61, torch.float64)
+    w_eq = thomas.kernel_plan(1, 7, 61, torch.float64, equilibrate=True)
+    assert w_eq["smem_bytes"] - w["smem_bytes"] == 8 * (61 * 123 + 61)
+
+
+@pytest.mark.parametrize("dtype,equilibrate,b_max", [
+    (torch.float64, False, 97), (torch.float64, True, 75),
+    (torch.float32, False, 138), (torch.float32, True, 106)])
+def test_kernel_plan_raises_past_shared_memory(dtype, equilibrate, b_max):
+    assert thomas.kernel_plan(1, 7, b_max, dtype, equilibrate)[
+        "kernel"] == "wide"
+    with pytest.raises(ValueError, match=f"B <= {b_max}"):
+        thomas.kernel_plan(1, 7, b_max + 1, dtype, equilibrate)
+
+
+def test_kernel_plan_override_and_its_checks():
+    assert thomas.kernel_plan(2, 7, 19, torch.float64, kernel="wide")[
+        "kernel"] == "wide"
+    with pytest.raises(ValueError, match="B <= 32"):
+        thomas.kernel_plan(2, 7, 40, torch.float64, kernel="warp")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        thomas.kernel_plan(2, 7, 19, torch.float64, kernel="block")
+
+
+def test_launch_counts_reset():
+    thomas._count({"warp": 2, "wide": 1})
+    assert thomas.launches >= 3
+    thomas.reset_counts()
+    assert thomas.launches == 0
+    assert thomas.launches_by_kernel == {"warp": 0, "wide": 0}

@@ -1,0 +1,140 @@
+"""Compare two checkouts of the PyTorch port on one CUDA card, in one process
+tree: the block-Thomas kernel's time per solve and the flagship's float64
+6-step slice, run in turns (parent, change, change, parent) so that both see
+the same card under the same power limit.
+
+Each turn is a fresh Python process that imports ``dlp_admm_torch`` from one
+checkout, lets it build its kernels, and
+
+* times ``solvers.thomas.block_thomas_solve`` on diagonally dominant systems
+  at the flagship's shapes, (S, T, B) = (2, 7, 19), (1, 7, 20), (256, 7, 19),
+  float64 and float32: 20 calls captured as one CUDA graph, replayed;
+* runs ``mpc.run_obca(Formulation.CONSENSUS, n_steps=6, device="cuda")``
+  with the float64 profile and keeps every step's wall time (the first step
+  carries the set-up) and ADMM iteration count.
+
+Only entry points that every checkout of the port has are used, so the
+parent may be any earlier commit, unpacked with ``git archive`` into a
+directory of its own.
+
+Usage: python3 tools/compare_torch_trees.py --parent DIR [--change DIR]
+           [--out PATH.json]
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHAPES = ((2, 7, 19), (1, 7, 20), (256, 7, 19))
+SLICE_STEPS = 6
+
+
+def worker(tree):
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    import dlp_admm_torch  # noqa: F401  (sets the TF32 switches)
+    from dlp_admm_torch.config import Formulation, ObcaConfig, SolverConfig
+    from dlp_admm_torch.mpc import run_obca
+    from dlp_admm_torch.solvers import thomas
+
+    def graph_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            fn()
+            graph.capture_begin()
+            for _ in range(reps):
+                fn()
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (5 * reps)
+
+    rng = np.random.default_rng(0)
+    k1 = {}
+    for dtype in (torch.float64, torch.float32):
+        for s, t, b in SHAPES:
+            diag = rng.normal(size=(s, t, b, b))
+            diag = 0.5 * (diag + np.swapaxes(diag, -1, -2)) \
+                + (b + 2.0) * np.eye(b)
+            upper = 0.3 * rng.normal(size=(s, t, b, b))
+            d, u, r = (torch.as_tensor(a, dtype=dtype, device="cuda")
+                       for a in (diag, upper, rng.normal(size=(s, t, b))))
+            k1[f"{s}x{t}x{b} {str(dtype)[6:]}"] = graph_ms(
+                lambda: thomas.block_thomas_solve(d, u, r))
+    res = run_obca(
+        Formulation.CONSENSUS,
+        ocfg=ObcaConfig(horizon=8, min_dis=0.1, rho=100.0, max_admm_iters=50),
+        scfg=SolverConfig(ip_iters=40, ip_tol=1e-6), n_steps=SLICE_STEPS,
+        device="cuda", dtype=torch.float64, local_prox=700.0, prox_growth=1.5,
+        prox_tau_max=3.0e10)
+    print(json.dumps(dict(
+        tree=tree, k1_ms=k1, step_wall_s=list(res.metrics.step_times),
+        iterations=list(res.metrics.iter_history),
+        final_state=res.states[-1].tolist())), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="checkout of the commit to compare with")
+    ap.add_argument("--change", default=ROOT)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        return worker(os.path.abspath(args.worker))
+    if not args.parent:
+        ap.error("--parent is required")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    turns = []
+    for name in ("parent", "change", "change", "parent"):
+        tree = os.path.abspath(getattr(args, name))
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker", tree],
+            capture_output=True, text=True, cwd=tree)
+        if out.returncode != 0:
+            raise RuntimeError(f"{name} ({tree}) failed:\n{out.stderr[-4000:]}")
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        rec["turn"] = name
+        turns.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    summary = {"nvidia_smi": smi}
+    for name in ("parent", "change"):
+        mine = [t for t in turns if t["turn"] == name]
+        summary[name] = dict(
+            k1_ms={k: mean([t["k1_ms"][k] for t in mine])
+                   for k in mine[0]["k1_ms"]},
+            # steps after the first, which carries the set-up
+            step_wall_s=mean([w for t in mine for w in t["step_wall_s"][1:]]),
+            first_step_wall_s=mean([t["step_wall_s"][0] for t in mine]),
+            iterations=mine[0]["iterations"])
+    print(json.dumps(summary), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(dict(turns=turns, summary=summary), f, indent=1)
+    print(smi)
+
+
+if __name__ == "__main__":
+    main()

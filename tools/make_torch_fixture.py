@@ -1,10 +1,17 @@
 """Write the JAX reference run that the PyTorch port is held against.
 
-Runs the consensus-OBCA flagship profile (2-vehicle overtaking, horizon 8,
-rho 100, ADMM cap 50, annealed local prox 700 x 1.5, staged IP with
-``ip_iters=40``, ``ip_tol=1e-6``) on the CPU in float64 through
-``ConsensusObcaPlanner.run_scan(return_health=True)``, all 42 MPC steps, and
-saves ``tests/data/consensus_obca_f64_ref.npz``:
+Runs the consensus-OBCA flagship (2-vehicle overtaking, horizon 8, rho 100,
+ADMM cap 50, annealed local prox 700 x 1.5, staged IP with ``ip_iters=40``)
+on the CPU through ``ConsensusObcaPlanner.run_scan(return_health=True)``, all
+42 MPC steps, in one of its two profiles (``bench.py``):
+
+* ``f64``: float64, ``ip_tol=1e-6``, ``prox_tau_max=3e10``, saved as
+  ``tests/data/consensus_obca_f64_ref.npz``;
+* ``f32``: float32, ``ip_tol=1e-4``, ``prox_tau_max=1e9`` (equilibrated
+  stage solves, two refinement passes), run with JAX's 64-bit mode off as
+  the accelerator runs it, saved as ``tests/data/consensus_obca_f32_ref.npz``.
+
+Each file holds
 
     states [43, 2, 5], iterations [42], primal [42], dual [42],
     nlp_ok [42, 2], nlp_kkt [42, 2], gaps [42],
@@ -12,7 +19,15 @@ saves ``tests/data/consensus_obca_f64_ref.npz``:
 
 ``tests/test_torch_obca.py`` and ``chip_smoke.py`` read it.
 
-Usage: python tools/make_torch_fixture.py [--steps N] [--out PATH]
+``--noise EPS`` adds normal noise of that size (``--seed``) to the consensus
+iterate ``z_bar`` the run starts from and saves nothing unless ``--out`` is
+given: a rounding-level change of the start shows how far the 42-step
+numbers printed at the end (steps under the residual thresholds, centre
+distance, NLP health, consensus gap) are properties of the planner and how
+far of one trajectory through the conflict window.
+
+Usage: python tools/make_torch_fixture.py [--profile f64|f32] [--steps N]
+           [--out PATH] [--noise EPS --seed N]
 """
 import argparse
 import json
@@ -43,38 +58,80 @@ PROFILE = dict(
     planner=dict(local_prox=700.0, prox_growth=1.5, prox_tau_max=3.0e10),
     dtype="float64",
 )
-DEFAULT_OUT = os.path.join(ROOT, "tests", "data",
-                           "consensus_obca_f64_ref.npz")
+PROFILES = dict(
+    f64=PROFILE,
+    f32=dict(PROFILE, scfg=dict(ip_iters=40, ip_tol=1e-4),
+             planner=dict(local_prox=700.0, prox_growth=1.5,
+                          prox_tau_max=1.0e9),
+             dtype="float32"))
 
 
-def make_planner():
-    return ConsensusObcaPlanner(ObcaConfig(**PROFILE["ocfg"]),
-                                scfg=SolverConfig(**PROFILE["scfg"]),
-                                **PROFILE["planner"])
+def default_out(name):
+    return os.path.join(ROOT, "tests", "data",
+                        f"consensus_obca_{name}_ref.npz")
+
+
+DEFAULT_OUT = default_out("f64")
+
+
+def make_planner(name="f64"):
+    """The JAX planner of profile ``name``. The float32 planner needs JAX's
+    64-bit mode off (``jax.enable_x64(False)`` around its use)."""
+    prof = PROFILES[name]
+    return ConsensusObcaPlanner(ObcaConfig(**prof["ocfg"]),
+                                scfg=SolverConfig(**prof["scfg"]),
+                                dtype=getattr(jax.numpy, prof["dtype"]),
+                                **prof["planner"])
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", choices=sorted(PROFILES), default="f64")
     ap.add_argument("--steps", type=int, default=None,
                     help="MPC steps (default: the whole 42-step run)")
-    ap.add_argument("--out", default=DEFAULT_OUT)
+    ap.add_argument("--out", default=None,
+                    help="default: tests/data/consensus_obca_<profile>_ref.npz"
+                         " (nothing with --noise)")
+    ap.add_argument("--noise", type=float, default=0.0,
+                    help="size of the normal noise added to the starting z_bar")
+    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    if not args.noise:
+        args.out = args.out or default_out(args.profile)
+    jax.config.update("jax_enable_x64", args.profile == "f64")
     commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
                             capture_output=True, text=True).stdout.strip()
     t0 = time.perf_counter()
-    states, its, prs, dus, _cvs, oks, kkts, gaps = make_planner().run_scan(
+    planner = make_planner(args.profile)
+    if args.noise:
+        bs0 = planner.create_bar_state()
+        eps = args.noise * np.random.default_rng(args.seed).normal(
+            size=bs0.z_bar.shape)
+        bs0 = bs0._replace(z_bar=bs0.z_bar + eps.astype(bs0.z_bar.dtype))
+        planner.create_bar_state = lambda: bs0
+    states, its, prs, dus, _cvs, oks, kkts, gaps = planner.run_scan(
         n_steps=args.steps, return_health=True)
     secs = time.perf_counter() - t0
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    np.savez_compressed(
-        args.out, states=states, iterations=its, primal=prs, dual=dus,
-        nlp_ok=oks, nlp_kkt=kkts, gaps=gaps,
-        profile=np.asarray(json.dumps(PROFILE, sort_keys=True)),
-        commit=np.asarray(commit))
-    print(json.dumps(dict(out=os.path.relpath(args.out, ROOT),
-                          steps=int(len(its)), seconds=round(secs, 1),
-                          mean_iterations=float(its.mean()),
-                          commit=commit)))
+    if args.out:
+        os.makedirs(os.path.dirname(args.out), exist_ok=True)
+        np.savez_compressed(
+            args.out, states=states, iterations=its, primal=prs, dual=dus,
+            nlp_ok=oks, nlp_kkt=kkts, gaps=gaps,
+            profile=np.asarray(json.dumps(PROFILES[args.profile],
+                                          sort_keys=True)),
+            commit=np.asarray(commit))
+    p = states[..., :2]
+    print(json.dumps(dict(
+        out=os.path.relpath(args.out, ROOT) if args.out else None,
+        profile=args.profile, noise=args.noise, seed=args.seed,
+        steps=int(len(its)), seconds=round(secs, 1),
+        mean_iterations=float(its.mean()),
+        steps_at_cap=int((its >= PROFILES[args.profile]["ocfg"][
+            "max_admm_iters"]).sum()),
+        res_ok=int(((prs <= 0.011) & (dus <= 0.011)).sum()),
+        min_distance_m=float(np.linalg.norm(p[:, 0] - p[:, 1], axis=-1).min()),
+        health=float(np.mean(oks == 1.0)), gap_median=float(np.median(gaps)),
+        gap_max=float(gaps.max()), commit=commit)))
 
 
 if __name__ == "__main__":

@@ -8,13 +8,16 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    and ``wide``, one block per system above that) for ``sm_90a``, one
    ``nvcc`` per library, side by side; prints the build time and what
    ``ptxas`` says, and fails if the warp kernel at the flagship's width
-   bound spills registers;
+   bound or a wide-kernel build that a driven path launches spills
+   registers (the other wide builds' spills are printed);
 3. kernel vs plain version on the card, float64 and float32, plain and
    equilibrated, at (S, T, B) = (2, 7, 19), (1, 7, 20), (32, 7, 19),
    (256, 7, 19) (warp kernel, and the wide kernel forced onto the same
-   shapes) and (4, 7, 43), (2, 7, 61) (wide kernel), on diagonally dominant,
-   KKT-style saddle, zero-leading-block saddle and (equilibrated only) badly
-   scaled systems made with numpy from a fixed seed (tolerances below);
+   shapes) and (4, 7, 33), (4, 7, 43), (2, 7, 61), (1, 7, 80), (2, 7, 80),
+   (1, 7, 97) (wide kernel; float64 equilibrated past 80 must be refused),
+   on diagonally dominant, KKT-style saddle, zero-leading-block saddle and
+   (equilibrated only) badly scaled systems made with numpy from a fixed
+   seed (tolerances below);
    per shape the device time of both kernels in turns, of the plain version
    and of one ``torch.linalg.solve`` on the assembled dense matrix (a
    yardstick the port never calls), beside the roofline bound;
@@ -29,9 +32,14 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
 6. the multi-vehicle path: one MPC step of 4 vehicles in float64 and of 3
    vehicles in float32 (KKT widths 33/80 and 26/45, which the wide kernel
    and the warp kernel's 32-wide build solve), each held against the same
-   step run on the kernels' plain version;
+   step run on the kernels' plain version, the 4-vehicle step also against
+   the committed JAX run ``tests/data/consensus_obca_v4_f64_ref.npz`` (its
+   capped first step), and that JAX run's 4 steps of
+   ``tests/test_multivehicle.py`` (ADMM cap 5) through ``run_obca``, held
+   against it (states within 1e-6, equal ADMM iteration counts);
 7. the kernels against their plain version on the KKT blocks those runs
-   gave them (by solution and by backward error), timed as in 3;
+   gave them (by solution and by backward error), timed as in 3, and the
+   clock64() split of both kernels' profiling builds on them;
 8. ``--full``: all 42 steps of both profiles. The run fails on the gates
    that hold whichever branch the chaotic conflict window takes (42 steps,
    finite states, overtake completed, footprints apart by more than
@@ -60,8 +68,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
 FIXTURE = os.path.join(DATA, "consensus_obca_f64_ref.npz")
 FIXTURE_F32 = os.path.join(DATA, "consensus_obca_f32_ref.npz")
+FIXTURE_V4 = os.path.join(DATA, "consensus_obca_v4_f64_ref.npz")
 SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (256, 7, 19))   # B <= 32
-WIDE_SHAPES = ((4, 7, 43), (2, 7, 61))                         # B > 32
+# B > 32: the 4-vehicle local and edge widths 33 and 80, the 3-vehicle edge
+# width 45 (at 43), the 8-vehicle local width 61, and 97, the float64 bound
+# (float64 equilibrated, 80 is the bound and a width the earlier wide
+# kernel did not hold; past it the wrapper must refuse)
+WIDE_SHAPES = ((4, 7, 33), (4, 7, 43), (2, 7, 61), (1, 7, 80), (2, 7, 80),
+               (1, 7, 97))
 KINDS = ("diag_dominant", "kkt_saddle", "zero_lead")
 EQ_KINDS = KINDS + ("badly_scaled",)
 # (kind, equilibrate): the badly scaled kind is what equilibration is for;
@@ -95,6 +109,7 @@ DEVICE = "cuda"
 # peaks; FP64 vector is half the FP32 rate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float64: 33.5e12, torch.float32: 67.0e12}
+SM_COUNT = 132          # one system runs on one SM: its bound is 1/132 of that
 REPLACES = "dlp_admm_tpu/solvers/thomas_pallas.py:145"
 # the 42-step float64 run of the block-per-system kernel the port began
 # with (NVIDIA H100 80GB HBM3, 700 W), printed beside --full
@@ -187,9 +202,12 @@ def bound(s, t, b, dtype, equilibrate):
     n_bytes, flops = thomas_work(s, t, b, elem, equilibrate)
     by_bytes = n_bytes / HBM_BYTES_PER_S
     by_ops = flops / PEAK_FLOPS[dtype]
+    # each system is one block on one SM: at most min(S, SM_COUNT) SMs work
+    one_sm = flops / (PEAK_FLOPS[dtype] * min(s, SM_COUNT) / SM_COUNT)
     return dict(bound_ms=1e3 * max(by_bytes, by_ops),
                 bound_us=1e6 * max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
+                sm_bound_us=1e6 * max(by_bytes, one_sm),
                 bytes=n_bytes, flops=flops)
 
 
@@ -317,10 +335,32 @@ def compare(thomas, diag, upper, rhs, label, equilibrate=False, kernel=None,
     return row
 
 
-def report_build(logs):
+def equilibrated_max(thomas, dtype):
+    """The widest B the wide kernel's equilibrated variant is built for."""
+    return max(thomas.wide_classes(dtype, True))
+
+
+def refuse(thomas, diag, upper, rhs, label):
+    """A width past the kernels' range: the wrapper must raise, naming the
+    bound, and launch nothing."""
+    before = thomas.launches
+    try:
+        thomas.launch_kernel(diag, upper, rhs, True)
+    except ValueError as e:
+        if "B <= " not in str(e) or thomas.launches != before:
+            raise RuntimeError(f"{label}: refused without the bound: {e}")
+        log(json.dumps(dict(case=label, refused=str(e))))
+        return
+    raise RuntimeError(f"{label}: a width past the range was not refused")
+
+
+def report_build(logs, wide_builds, main_path_plans):
     """Print ``ptxas``'s numbers per kernel instantiation; returns them as
     records. Raises if the warp kernel's 20-wide build (the flagship's
-    B = 19 and 20) uses a stack frame or spills."""
+    B = 19 and 20) or a build of the wide kernel that a driven path launches
+    (``main_path_plans``: (dtype, equilibrated, plan); and the profiling
+    builds) uses a stack frame or spills; the other wide builds' spills are
+    printed."""
     rows = []
     for name, text in logs.items():
         entry = None
@@ -347,15 +387,41 @@ def report_build(logs):
             r.update(dtype="f64" if m.group(1) == "d" else "f32",
                      bp=int(m.group(2)), equilibrated=m.group(3) == "1",
                      profiling=m.group(4) == "1")
+        # <T, NCL, RPW, NT, MAXW, EQ, PROF>
+        m = re.search(r"thomas_wide_kernelI([df])Li(\d+)ELi(\d+)ELi(\d+)E"
+                      r"Li(\d+)ELb([01])ELb([01])E", r["function"])
+        if m:
+            r.update(dtype="f64" if m.group(1) == "d" else "f32",
+                     ncl=int(m.group(2)), rpw=int(m.group(3)),
+                     nt=int(m.group(4)), max_warps=int(m.group(5)),
+                     equilibrated=m.group(6) == "1",
+                     profiling=m.group(7) == "1")
         log("  " + json.dumps(r))
     flagship = [r for r in rows if r.get("bp") == 20 and not r["profiling"]]
     if len(flagship) != 4:
         raise RuntimeError(f"expected 4 warp-kernel builds at width 20 in "
                            f"the compiler's output, found {len(flagship)}")
-    bad = [r for r in flagship if r.get("stack", 1) or r.get("spill_stores", 1)
-           or r.get("spill_loads", 1)]
+    wide = [r for r in rows if "ncl" in r]
+    if len(wide) != wide_builds:
+        raise RuntimeError(f"expected {wide_builds} wide-kernel builds in the "
+                           f"compiler's output, found {len(wide)}")
+
+    def spills(r):
+        return bool(r.get("stack", 1) or r.get("spill_stores", 1)
+                    or r.get("spill_loads", 1))
+    # the wide builds the driven paths launch: the profiling builds and the
+    # classes of the 4-vehicle (33, 80, float64) and 3-vehicle (45, float32
+    # equilibrated) widths
+    on_path = [r for r in wide if r["profiling"] or any(
+        (r["dtype"], r["equilibrated"], r["ncl"], r["rpw"], r["nt"])
+        == (dt, eq, p["ncl"], p["rpw"], p["nt"])
+        for dt, eq, p in main_path_plans)]
+    bad = [r for r in flagship + on_path if spills(r)]
     if bad:
-        raise RuntimeError(f"the warp kernel spills at width 20: {bad}")
+        raise RuntimeError(f"a kernel build spills: {bad}")
+    off = [r for r in wide if spills(r) and r not in on_path]
+    for r in off:
+        log("  spills (a class no driven path launches): " + json.dumps(r))
     return rows
 
 
@@ -465,10 +531,12 @@ def slice_record(name, res, ref, counts, block_solves):
 
 
 def multi_vehicle(thomas, ip_staged, run_obca, Formulation, num_veh, dtype,
-                  expect, tol):
+                  expect, tol, ref=None):
     """One MPC step of ``num_veh`` vehicles (two ADMM iterations, pairs
     gated as in tests/test_multivehicle.py) on the kernels, and the same
-    step on their plain version; returns the record and the KKT systems."""
+    step on their plain version; with ``ref`` (the 4-vehicle JAX fixture)
+    also held against its capped step (states within STATE_TOL, equal ADMM
+    iterations). Returns the record and the KKT systems."""
     from dlp_admm_torch.config import ObcaConfig, SolverConfig
     f64 = dtype == torch.float64
     name = f"multi-vehicle V={num_veh} {str(dtype)[6:]}"
@@ -502,12 +570,55 @@ def multi_vehicle(thomas, ip_staged, run_obca, Formulation, num_veh, dtype,
     if not err <= tol:
         raise RuntimeError(f"{name}: states differ from the plain-version "
                            f"run: {err}")
+    if ref is not None:
+        jax_err = float(np.abs(res.states - ref["capped_states"]).max())
+        log(f"{name}: max |state - JAX capped step| = {jax_err:.3e} (tol "
+            f"{STATE_TOL:.0e}); ADMM iterations {res.metrics.iter_history}, "
+            f"JAX {ref['capped_iterations'].tolist()}")
+        if not (jax_err <= STATE_TOL and res.metrics.iter_history
+                == ref["capped_iterations"].tolist()):
+            raise RuntimeError(f"{name}: the capped step differs from the "
+                               f"JAX fixture")
     rec = dict(launches=counts, block_solves=pl.block_solves,
                kkt_shapes=sorted(systems), max_state_err_vs_plain=err,
                iterations=res.metrics.iter_history,
                wall_s=res.metrics.step_times[0],
                plain_wall_s=want.metrics.step_times[0])
     return rec, systems
+
+
+def v4_against_jax(thomas, ip_staged, run_obca, Formulation, ref):
+    """The run of tests/test_multivehicle.py (4 vehicles in two lanes, 4 MPC
+    steps, ADMM cap 5, pairs gated at 12 m) on the kernels, held against
+    the committed JAX run: states within STATE_TOL, equal ADMM iteration
+    counts, and the wide kernel launched."""
+    from dlp_admm_torch.config import ObcaConfig, SolverConfig
+    prof = json.loads(str(ref["profile"]))
+    name = "4-vehicle run vs JAX"
+    res, counts, _ = drive(thomas, ip_staged, lambda: run_obca(
+        Formulation.CONSENSUS, ocfg=ObcaConfig(**prof["ocfg"]),
+        scfg=SolverConfig(**prof["scfg"]), n_steps=prof["steps"],
+        dtype=torch.float64, **prof["planner"]))
+    check_counts(name, counts, res.extras["planner"].block_solves, ("wide",))
+    its = list(res.metrics.iter_history)
+    if res.states.shape != ref["states"].shape or not np.all(
+            np.isfinite(res.states)):
+        raise RuntimeError(f"{name}: states {res.states.shape} not finite "
+                           f"or not {ref['states'].shape}")
+    err = float(np.abs(res.states - ref["states"]).max())
+    log(f"{name}: max |state - JAX fixture| = {err:.3e} (tol "
+        f"{STATE_TOL:.0e}); ADMM iterations {its}, JAX "
+        f"{ref['iterations'].tolist()}; wall {sum(res.metrics.step_times):.2f}"
+        f" s for {len(its)} steps")
+    if not err <= STATE_TOL:
+        raise RuntimeError(f"{name}: states differ from the JAX fixture: "
+                           f"{err}")
+    if its != ref["iterations"].tolist():
+        raise RuntimeError(f"{name}: ADMM iterations {its} != JAX "
+                           f"{ref['iterations'].tolist()}")
+    return dict(launches=counts, max_state_err_vs_jax=err, iterations=its,
+                jax_iterations=ref["iterations"].tolist(),
+                step_wall_s=list(res.metrics.step_times))
 
 
 def main():
@@ -529,6 +640,7 @@ def main():
     from dlp_admm_torch.solvers import ip_staged, thomas
     refs = {torch.float64: np.load(FIXTURE),
             torch.float32: np.load(FIXTURE_F32)}
+    ref_v4 = np.load(FIXTURE_V4)
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -540,7 +652,18 @@ def main():
     ptxas = thomas.build()
     build_s = time.perf_counter() - t0
     log(f"build: {', '.join(ptxas)} in {build_s:.2f} s")
-    records.update(build_s=build_s, ptxas=report_build(ptxas))
+    # every width class of each type, plain and (where built) equilibrated,
+    # and one profiling build of each type
+    wide_builds = sum(len(thomas.wide_classes(dt, eq))
+                      for dt in thomas.WIDE_CLASSES
+                      for eq in (False, True)) + 2
+    main_path_plans = [
+        (str(dt)[6:].replace("float", "f"), eq,
+         thomas.kernel_plan(1, 7, b, dt, eq)) for dt, eq, b in (
+            (torch.float64, False, 33), (torch.float64, False, 80),
+            (torch.float32, True, 45))]
+    records.update(build_s=build_s, ptxas=report_build(ptxas, wide_builds,
+                                                       main_path_plans))
 
     # -- 3. kernel vs plain version -------------------------------------
     rng = np.random.default_rng(0)
@@ -552,6 +675,9 @@ def main():
                            for a in make_system(rng, s, t, b, kind_))
                 label = (f"{kind_} S={s} T={t} B={b} {str(dtype)[6:]}"
                          f"{' equilibrated' if eq else ''}")
+                if eq and b > equilibrated_max(thomas, dtype):
+                    refuse(thomas, d, u, r, label)
+                    continue
                 synth.append(compare(thomas, d, u, r, label, eq,
                                      timed=kind_ == "diag_dominant"))
                 if b <= thomas.WARP_MAX_B:
@@ -586,8 +712,12 @@ def main():
         name = f"multi-vehicle V={num_veh} {str(dtype)[6:]}"
         records[name], systems[name] = multi_vehicle(
             thomas, ip_staged, run_obca, Formulation, num_veh, dtype, expect,
-            tol)
+            tol, ref_v4 if num_veh == 4 else None)
         paths[name] = records[name]["launches"]
+    name = "4-vehicle run vs JAX"
+    records[name] = v4_against_jax(thomas, ip_staged, run_obca, Formulation,
+                                   ref_v4)
+    paths[name] = records[name]["launches"]
 
     # -- 7. the kernels on the KKT blocks those runs gave them ----------
     real = []
@@ -599,6 +729,7 @@ def main():
                 f"B={key[2]}", r.dtype != torch.float64, timed=True,
                 run_block=True), path=name))
     records["kernel_on_run_blocks"] = real
+    records["clock_split"] = clock_split(thomas, systems)
 
     # -- 8. --full ------------------------------------------------------
     if args.full:
@@ -631,6 +762,38 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+PHASES = {"warp": ("load", "equilibrate", "eliminate", "refine",
+                   "store and product", "back substitution"),
+          "wide": ("load and product", "equilibrate", "eliminate", "refine",
+                   "store", "back substitution")}
+
+
+def clock_split(thomas, systems):
+    """The profiling builds' clock64() split of one solve of a run's KKT
+    system: the warp kernel on the float64 and float32 slices' local
+    systems, the wide kernel on the 4-vehicle edge system (float64) and the
+    3-vehicle edge system (float32, equilibrated); clocks of the first
+    system, and per pivot step in the elimination."""
+    out = []
+    for name, path, key in (
+            ("warp", "slice float64", (2, 7, 19)),
+            ("warp", "slice float32", (2, 7, 19)),
+            ("wide", "multi-vehicle V=4 float64", (1, 7, 80)),
+            ("wide", "multi-vehicle V=3 float32", (1, 7, 45))):
+        d, u, r = systems[path][key]
+        eq = r.dtype != torch.float64
+        _, clocks = thomas.launch_kernel(d, u, r, eq, kernel=name,
+                                         profile=True)
+        c = clocks[0].tolist()
+        row = dict(kernel=name, path=path, shape=list(key),
+                   dtype=str(r.dtype)[6:], clocks=dict(zip(PHASES[name], c)),
+                   total_clocks=sum(c),
+                   eliminate_clocks_per_pivot=c[2] / (key[1] * key[2]))
+        log(json.dumps(row))
+        out.append(row)
+    return out
+
+
 def kernel_entry(name, real, paths, path, shape):
     """One kernel's line: launches over every driven path, and the error
     against the plain version and the times on the KKT system of ``shape``
@@ -653,6 +816,7 @@ def kernel_entry(name, real, paths, path, shape):
         shape=list(shape), dtype=at["dtype"], ms=at["ms"],
         plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
         bound_us=at["bound_us"], bound_by=at["bound_by"],
+        one_sm_bound_ms=1e-3 * at["sm_bound_us"],
         library_ms=at["library_ms"], us_per_pivot=at["us_per_pivot"])
 
 

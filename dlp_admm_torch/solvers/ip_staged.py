@@ -130,6 +130,28 @@ class _Carry(NamedTuple):
 
 
 _capture_streams: dict = {}
+# diagnostics: when set, called as ``on_trip(trip, carry, trips)`` before the
+# first IP trip of a solve (``trips`` 0) and after every trip of either loop
+# (``trips`` counting from 1); it may read the device, and may run the pure
+# function ``trip`` on the carry it is given
+on_trip = None
+
+
+def _trips_eager(trip, carry, max_trips):
+    """The IP loop, one eager trip after another; ``done`` is read on the
+    host after each trip and the loop stops once every lane is done.
+    Returns ``(carry, trips)``."""
+    trips = 0
+    if on_trip is not None:
+        on_trip(trip, carry, trips)
+    while trips < max_trips:
+        carry = trip(carry)
+        trips += 1
+        if on_trip is not None:
+            on_trip(trip, carry, trips)
+        if bool(carry.done.all()):        # one host read per trip
+            break
+    return carry, trips
 
 
 def _trips_graphed(trip, carry, max_trips):
@@ -148,15 +170,20 @@ def _trips_graphed(trip, carry, max_trips):
     stream = _capture_streams.get(dev)
     if stream is None:
         stream = _capture_streams[dev] = torch.cuda.Stream(dev)
+    if on_trip is not None:
+        on_trip(trip, carry, 0)
     stream.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(stream):
         carry = trip(carry)
     torch.cuda.current_stream(dev).wait_stream(stream)
     trips = 1
+    if on_trip is not None:
+        on_trip(trip, carry, trips)
     if trips == max_trips or bool(carry.done.all()):
         return carry, trips
     static = _Carry(*(x.clone() for x in carry))
     stream.wait_stream(torch.cuda.current_stream(dev))
+
     graph = torch.cuda.CUDAGraph()
     before = dict(thomas.captured)
     with torch.cuda.stream(stream):
@@ -168,6 +195,8 @@ def _trips_graphed(trip, carry, max_trips):
     while trips < max_trips:
         thomas.replay(graph, kernels)
         trips += 1
+        if on_trip is not None:
+            on_trip(trip, static, trips)
         if bool(static.done.all()):        # one host read per trip
             break
     return static, trips
@@ -185,7 +214,24 @@ def solve_staged(snlp: StagedNLP, w0: torch.Tensor, p: dict,
     loop runs at most ``cfg.ip_iters`` trips and stops early once every lane
     is done (a done lane's carry is frozen, so the remaining trips would
     change nothing).
+
+    The solve runs with the autograd engine's device threads off
+    (``torch.autograd.set_multithreading_enabled(False)``). With them on,
+    the first-order backward pass inside ``vmap(jacrev(grad))`` runs on the
+    engine's CUDA worker thread, so the nodes of the second-order pass are
+    numbered by two thread-local counters, and the engine, which runs ready
+    nodes in the order of those numbers, sums gradient contributions in an
+    order that depends on how many nodes each thread has made since the
+    process began: the same solve then gives other bits in another call
+    (``tools/check_torch_window.py --repeat``, PERF.md). On the calling
+    thread alone every node comes from one counter and the order is that of
+    the program.
     """
+    with torch.autograd.set_multithreading_enabled(False):
+        return _solve_staged(snlp, w0, p, cfg, yl0, ys0, z0)
+
+
+def _solve_staged(snlp, w0, p, cfg, yl0, ys0, z0):
     dtype, dev = w0.dtype, w0.device
     n_s, t, b = w0.shape
     n_st = n_s * t
@@ -458,15 +504,8 @@ def solve_staged(snlp: StagedNLP, w0: torch.Tensor, p: dict,
                       iters + (~done).to(torch.int32))
 
     carry = _Carry(w0, s, yl, ys, z, mu, delta, done, iters)
-    if dev.type == "cuda":
-        carry, trips = _trips_graphed(trip, carry, cfg.ip_iters)
-    else:
-        trips = 0
-        while trips < cfg.ip_iters:
-            carry = trip(carry)
-            trips += 1
-            if bool(carry.done.all()):        # one host read per trip
-                break
+    loop = _trips_graphed if dev.type == "cuda" else _trips_eager
+    carry, trips = loop(trip, carry, cfg.ip_iters)
     w, s, yl, ys, z, _, _, done, iters = carry
     block_solves = trips * (1 + n_refine)
 

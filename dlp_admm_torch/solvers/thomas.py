@@ -24,9 +24,10 @@ Two kernels, chosen by the block width (:func:`kernel_plan`):
 * ``warp`` (``csrc/block_thomas_warp.cu``, compiled once per element type),
   B <= 32: one warp per system, the augmented tile in registers, no block
   barrier inside a pivot step;
-* ``wide`` (``csrc/block_thomas_wide.cu``), B up to the shared-memory limit
-  (97 in float64, 75 equilibrated): one thread block per system, the tile in
-  shared memory.
+* ``wide`` (``csrc/block_thomas_wide.cu``, compiled once per element type),
+  32 < B <= 97 in float64 and <= 138 in float32 (equilibrated: <= 80 and
+  <= 106): one thread block per system, the tile in registers (warp w owns
+  rows, lane l columns l, l+32, ...), one block barrier a pivot step.
 
 :func:`block_thomas_solve` takes the plain version for tensors on the CPU and
 launches a kernel for tensors on a CUDA device; there is no fallback between
@@ -44,17 +45,33 @@ from .. import cuda_build
 PIVOT_FLOOR = 1e-30
 KERNELS = ("warp", "wide")
 _WARP_SRC = (cuda_build.CSRC_DIR / "block_thomas_warp.cu",)
+_WIDE_SRC = (cuda_build.CSRC_DIR / "block_thomas_wide.cu",)
+_F64 = ("-DBLOCK_THOMAS_REAL=double",)
+_F32 = ("-DBLOCK_THOMAS_REAL=float",)
 # library -> (sources, extra nvcc flags); one compiler each, side by side
 LIBRARIES = {
-    "block_thomas_warp_f64": (_WARP_SRC, ("-DBLOCK_THOMAS_REAL=double",)),
-    "block_thomas_warp_f32": (_WARP_SRC, ("-DBLOCK_THOMAS_REAL=float",)),
-    "block_thomas_wide": ((cuda_build.CSRC_DIR / "block_thomas_wide.cu",),
-                          ()),
+    "block_thomas_warp_f64": (_WARP_SRC, _F64),
+    "block_thomas_warp_f32": (_WARP_SRC, _F32),
+    "block_thomas_wide_f64": (_WIDE_SRC, _F64),
+    "block_thomas_wide_f32": (_WIDE_SRC, _F32),
 }
 WARP_MAX_B = 32
 WARP_WIDTHS = (20, 32)      # width bounds the warp kernel is compiled for
 WARP_MAX_WARPS = 4          # systems per block, at most
-WIDE_THREADS = 256
+# the wide kernel's width classes: bound -> (column slots a lane holds of
+# each row, then rows a warp holds and how many of the last slots live in
+# shared memory instead of registers, unequilibrated and equilibrated; None
+# where the equilibrated variant is not built), as in
+# csrc/block_thomas_wide.cu. A class with bound BP launches ceil(B / rows)
+# warps, and 2 BP + 1 <= 32 slots.
+WIDE_CLASSES = {
+    torch.float64: {48: (4, (4, 0), (4, 0)), 64: (5, (4, 0), (8, 0)),
+                    80: (6, (5, 0), (10, 2)), 97: (7, (4, 2), None)},
+    torch.float32: {48: (4, (4, 0), (4, 0)), 64: (5, (4, 0), (4, 0)),
+                    80: (6, (5, 0), (5, 0)), 97: (7, (4, 2), (14, 4)),
+                    106: (7, (4, 2), (14, 4)), 138: (9, (5, 4), None)},
+}
+WIDE_PROFILE_BP = 80        # the class the profiling build is compiled for
 # an H100's per-block shared-memory limit and SM count: kernel_plan's
 # defaults when no device is asked (the CPU tests)
 H100_SMEM_LIMIT = 232448
@@ -93,18 +110,22 @@ def replay(graph, kernels: dict) -> None:
     _count(kernels)
 
 
-def _gauss_jordan(c: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def _gauss_jordan(c: torch.Tensor, m: torch.Tensor,
+                  pivots: list | None = None) -> torch.Tensor:
     """``C^-1 M`` for ``c [S, B, B]``, ``m [S, B, M]`` by the kernels'
     elimination: row j swaps with the first row i >= j of largest
-    ``|aug[i, j]|``, the pivot is floored, row i subtracts its multiplier
-    ``aug[i, j] / pivot`` times the pivot row, and the pivot row is scaled
-    by the same reciprocal."""
+    ``|aug[i, j]|`` (a NaN counts as the largest), the pivot is floored, row
+    i subtracts its multiplier ``aug[i, j] / pivot`` times the pivot row,
+    and the pivot row is scaled by the same reciprocal. ``pivots``, if
+    given, receives each step's pivot row position ``[S]``."""
     s, b = c.shape[0], c.shape[1]
     floor = torch.full((s,), PIVOT_FLOOR, dtype=c.dtype, device=c.device)
     rows = torch.arange(b, device=c.device)
     aug = torch.cat([c, m], dim=-1)
     for j in range(b):
         p = (j + torch.argmax(aug[:, j:, j].abs(), dim=1))[:, None]
+        if pivots is not None:
+            pivots.append(p[:, 0].clone())
         perm = torch.where(rows == j, p, torch.where(rows == p, j, rows))
         aug = torch.gather(aug, 1, perm[..., None].expand(aug.shape))
         pjj = aug[:, j, j]
@@ -171,14 +192,32 @@ def warp_elems(b: int, bp: int, t: int, equilibrate: bool,
     return n
 
 
-def wide_elems(b: int, equilibrate: bool) -> int:
-    """Shared-memory elements one block of the wide kernel needs (the layout
-    of ``wide_elems`` in ``csrc/block_thomas_wide.cu``)."""
-    w = 2 * b + 1
-    n = b * w + b * b + b + 2 * w + b
-    if equilibrate:
-        n += b * w + b
-    return n
+def wide_elems(b: int, nw: int, ncl: int, rpw: int, nt: int) -> int:
+    """Shared-memory elements one block of the wide kernel holds: the
+    double-buffered candidate rows of its ``nw`` warps ``[2, nw, 32 ncl]``
+    and every row's entry in the coming pivot column ``[2, nw rpw]``,
+    ``X_k | y_k`` ``[B, B+1]``, the row scales and the reciprocal pivots
+    ``[2, B]`` and the tile's last ``nt`` column slots ``[nt, nw rpw, 32]``."""
+    return (2 * nw * (32 * ncl + rpw) + b * (b + 1) + 2 * b
+            + nt * nw * rpw * 32)
+
+
+def wide_bytes(b: int, elem: int, nw: int, ncl: int, rpw: int,
+               nt: int) -> int:
+    """Shared-memory bytes of one block of the wide kernel (``wide_bytes``
+    in ``csrc/block_thomas_wide.cu``): candidate keys, positions and rows
+    (512 + 512 bytes), the pivot rows ``int[B]`` rounded up to 16 bytes,
+    then :func:`wide_elems` elements."""
+    return 1024 + -(-4 * b // 16) * 16 + elem * wide_elems(b, nw, ncl, rpw,
+                                                           nt)
+
+
+def wide_classes(dtype: torch.dtype, equilibrate: bool) -> dict:
+    """Bound -> (ncl, rpw, nt) of the wide kernel's classes built for
+    ``dtype`` and the variant."""
+    return {bp: (ncl,) + (eq if equilibrate else plain)
+            for bp, (ncl, plain, eq) in WIDE_CLASSES[dtype].items()
+            if not (equilibrate and eq is None)}
 
 
 def kernel_plan(s: int, t: int, b: int, dtype: torch.dtype,
@@ -194,21 +233,28 @@ def kernel_plan(s: int, t: int, b: int, dtype: torch.dtype,
     stage's ``X_k | y_k`` in shared memory where that fits the limit, else
     in global scratch. Raises ``ValueError`` for a width no kernel holds.
     """
-    elem = torch.empty((), dtype=dtype).element_size()
+    elem = torch.finfo(dtype).bits // 8
     if kernel is None:
         kernel = "warp" if b <= WARP_MAX_B else "wide"
     if kernel == "wide":
-        need = elem * wide_elems(b, equilibrate)
-        if need > smem_limit:
-            b_max = b
-            while elem * wide_elems(b_max, equilibrate) > smem_limit:
-                b_max -= 1
+        classes = wide_classes(dtype, equilibrate)
+
+        def fit(x):         # the narrowest class that holds width x
+            return next((bp for bp in sorted(classes) if x <= bp and
+                         wide_bytes(x, elem, -(-x // classes[bp][1]),
+                                    *classes[bp]) <= smem_limit), None)
+        bp = fit(b)
+        if bp is None:
+            b_max = max(x for x in range(1, max(classes) + 1) if fit(x))
             raise ValueError(
-                f"block width B={b} needs {need} bytes of shared memory per "
-                f"block; this device allows {smem_limit}, so B <= {b_max} in "
-                f"{dtype}{' equilibrated' if equilibrate else ''}")
-        return dict(kernel="wide", blocks=s, threads=WIDE_THREADS,
-                    smem_bytes=need)
+                f"block width B={b} is past the wide kernel's register tile "
+                f"and shared memory: B <= {b_max} in {dtype}"
+                f"{' equilibrated' if equilibrate else ''}")
+        ncl, rpw, nt = classes[bp]
+        nw = -(-b // rpw)
+        return dict(kernel="wide", bp=bp, ncl=ncl, rpw=rpw, nt=nt, warps=nw,
+                    blocks=s, threads=32 * nw,
+                    smem_bytes=wide_bytes(b, elem, nw, ncl, rpw, nt))
     if kernel != "warp":
         raise ValueError(f"unknown kernel {kernel!r}")
     if b > WARP_MAX_B:
@@ -230,18 +276,21 @@ def kernel_plan(s: int, t: int, b: int, dtype: torch.dtype,
 
 def library_name(kernel: str, dtype: torch.dtype) -> str:
     """The library that holds ``kernel`` for ``dtype``."""
-    if kernel == "wide":
-        return "block_thomas_wide"
-    return "block_thomas_warp_" + ("f64" if dtype == torch.float64 else "f32")
+    return f"block_thomas_{kernel}_" + (
+        "f64" if dtype == torch.float64 else "f32")
 
 
 def _lib(name: str):
     lib = cuda_build.load(name, *LIBRARIES[name])
     if not getattr(lib, "_typed", False):
         ptr, i32, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-        if name == "block_thomas_wide":
-            lib.block_thomas_wide.argtypes = [ptr] * 6 + [i32] * 6 + [sz, ptr]
+        if name.startswith("block_thomas_wide"):
+            lib.block_thomas_wide.argtypes = [ptr] * 7 + [i32] * 6 + [sz, ptr]
             lib.block_thomas_wide.restype = i32
+            lib.block_thomas_wide_profile.argtypes = (
+                [ptr] * 8 + [i32] * 4 + [sz, ptr])
+            lib.block_thomas_wide_profile.restype = i32
+            elem_bytes = lib.block_thomas_wide_elem_bytes
         else:
             lib.block_thomas_warp.argtypes = (
                 [ptr] * 5 + [i32] * 8 + [sz, ptr])
@@ -249,11 +298,11 @@ def _lib(name: str):
             lib.block_thomas_warp_profile.argtypes = (
                 [ptr] * 6 + [i32] * 6 + [sz, ptr])
             lib.block_thomas_warp_profile.restype = i32
-            lib.block_thomas_warp_elem_bytes.argtypes = []
-            lib.block_thomas_warp_elem_bytes.restype = i32
-            want = 8 if name.endswith("f64") else 4
-            if lib.block_thomas_warp_elem_bytes() != want:
-                raise RuntimeError(f"{name} was built for another type")
+            elem_bytes = lib.block_thomas_warp_elem_bytes
+        elem_bytes.argtypes = []
+        elem_bytes.restype = i32
+        if elem_bytes() != (8 if name.endswith("f64") else 4):
+            raise RuntimeError(f"{name} was built for another type")
         lib._typed = True
     return lib
 
@@ -309,10 +358,13 @@ def launch_kernel(diag: torch.Tensor, upper: torch.Tensor, rhs: torch.Tensor,
     """Launch one kernel on CUDA tensors (on the current stream) and return
     its output; ``kernel`` overrides the choice by width, for measurements.
 
-    ``profile=True`` (warp kernel, B <= 20, float64 unequilibrated or
-    float32 equilibrated) also returns ``[S, 6]`` int64 clocks per system
-    spent in (load, equilibrate, elimination, refinement, storing
-    ``X_k | y_k`` and the product for the next stage, back substitution).
+    ``profile=True`` (float64 unequilibrated or float32 equilibrated; the
+    warp kernel for B <= 20, the wide kernel for 32 < B <= 80) also returns
+    ``[S, 6]`` int64 clocks per system spent in (warp kernel: load,
+    equilibrate, elimination, refinement, storing ``X_k | y_k`` and the
+    product for the next stage, back substitution; wide kernel: load and
+    the product of the stage, equilibrate, elimination, refinement, storing
+    ``X_k | y_k``, back substitution).
     Under stream capture the launch is recorded into the graph and
     counted in :data:`captured`; :func:`replay` counts it when it runs.
     """
@@ -356,15 +408,39 @@ def launch_kernel(diag: torch.Tensor, upper: torch.Tensor, rhs: torch.Tensor,
                     plan["bp"], plan["warps"], int(plan["hist_in_smem"]),
                     plan["smem_bytes"], stream)
         else:
-            if profile:
-                raise ValueError("only the warp kernel has a profiling build")
+            # scratch: every stage's X_k | y_k and, equilibrated, the scaled
+            # stage system and every pivot step's multipliers (rows of the
+            # block's warps); the kernel writes each element before reading
+            # it
             xs = torch.empty_like(diag)
             ys = torch.empty_like(rhs)
-            rc = lib.block_thomas_wide(
-                diag.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
-                out.data_ptr(), xs.data_ptr(), ys.data_ptr(), s, t, b,
-                upper.shape[1], elem, int(equilibrate), plan["smem_bytes"],
-                stream)
+            if profile:
+                ncl, rpw, nt = wide_classes(rhs.dtype, equilibrate)[
+                    WIDE_PROFILE_BP]
+            else:
+                ncl, rpw, nt = plan["ncl"], plan["rpw"], plan["nt"]
+            rows = -(-b // rpw) * rpw
+            orig = torch.empty((s, b * (2 * b + 1) + b * rows),
+                               dtype=rhs.dtype, device=rhs.device
+                               ) if equilibrate else None
+            args = (diag.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
+                    out.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+                    None if orig is None else orig.data_ptr())
+            if profile:
+                if not 32 < b <= WIDE_PROFILE_BP or equilibrate != (
+                        rhs.dtype == torch.float32):
+                    raise ValueError(
+                        "the wide profiling kernel is built for 32 < B <= 80, "
+                        "float64 unequilibrated or float32 equilibrated")
+                prof = torch.zeros((s, 6), dtype=torch.int64,
+                                   device=rhs.device)
+                rc = lib.block_thomas_wide_profile(
+                    *args, prof.data_ptr(), s, t, b, upper.shape[1],
+                    wide_bytes(b, elem, -(-b // rpw), ncl, rpw, nt), stream)
+            else:
+                rc = lib.block_thomas_wide(
+                    *args, s, t, b, upper.shape[1], int(equilibrate),
+                    plan["bp"], plan["smem_bytes"], stream)
     if rc != 0:
         raise RuntimeError(f"block_thomas_{name} launch failed: code {rc} "
                            f"(a cudaError, or -1 arguments, -2 layout)")

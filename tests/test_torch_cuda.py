@@ -12,11 +12,18 @@ float32 — both sides run the same recursion with the same pivot choice,
 pivot floor, scaling and refinement; only the order of summation inside each
 product differs.
 """
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import SHAPES, VARIANTS, WIDE_SHAPES, make_system
+from chip_smoke import (SHAPES, VARIANTS, WIDE_SHAPES, equilibrated_max,
+                        make_system)
 from dlp_admm_torch.config import ObcaConfig, SolverConfig
 from dlp_admm_torch.models.obca import ConsensusObcaPlanner
 from dlp_admm_torch.solvers import ip_staged, thomas
@@ -51,6 +58,13 @@ def _shape_id(s):
 def test_kernel_matches_plain(cuda, shape, kind, equilibrate, dtype):
     d, u, r = _system(5, shape, kind, dtype, cuda)
     name = "warp" if shape[2] <= 32 else "wide"
+    if equilibrate and shape[2] > equilibrated_max(thomas, dtype):
+        # past the equilibrated variant's widths the wrapper refuses
+        total = thomas.launches
+        with pytest.raises(ValueError, match="B <= "):
+            thomas.block_thomas_solve(d, u, r, equilibrate)
+        assert thomas.launches == total
+        return
     before = thomas.launches_by_kernel[name]
     total = thomas.launches
     got = thomas.block_thomas_solve(d, u, r, equilibrate)
@@ -249,3 +263,41 @@ def test_wrapper_checks_on_cuda(cuda):
             torch.zeros(1, 2, big, big, dtype=torch.float64, device=cuda),
             torch.zeros(1, 2, big, big, dtype=torch.float64, device=cuda),
             torch.zeros(1, 2, big, dtype=torch.float64, device=cuda))
+
+
+def _window_tool():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "check_torch_window.py")
+    spec = importlib.util.spec_from_file_location("check_torch_window", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_float32_run_repeats_bit_for_bit(cuda, tmp_path):
+    """The float32 6-step slice of ``chip_smoke.py`` and conflict-window
+    step 14 from the JAX run's carry
+    (``tests/data/consensus_obca_f32_carry14.npz``), twice in this process
+    and once in a fresh one (whose first call is the process's first graph
+    capture): the carry after every IP trip and ADMM iteration, the final
+    states and the ADMM iteration counts are the same, bit for bit.
+    About 4 minutes on an H100."""
+    tool = _window_tool()
+    data = np.load(tool.STEP14_CARRY)
+    calls = [[tool.one_call(job, data, "cuda") for job in ("slice", 14)]
+             for _ in range(2)]
+    out = tmp_path / "calls.json"
+    subprocess.run([sys.executable, tool.__file__, "--repeat", "1",
+                    "--slice", "--steps", "14", "--carries",
+                    tool.STEP14_CARRY, "--json", str(out)], check=True,
+                   timeout=900)
+    fresh = json.loads(out.read_text())["calls"]
+    for i, job in enumerate(("slice", "14")):
+        first = calls[0][i]
+        others = [calls[1][i], fresh[job][0]]
+        for other in others:
+            assert other["iterations"] == first["iterations"], job
+            assert other["final_digest"] == first["final_digest"], job
+            rows = [tuple(r) for r in other["rows"]]
+            assert tool.first_parting(first["rows"], rows) is None, job

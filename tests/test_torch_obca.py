@@ -173,6 +173,54 @@ def test_committed_fixture_matches_jax_run():
         _close(got, ref[name][:2], name, tol=1e-12)
 
 
+# -- more than two vehicles (the wide kernel's widths on the card) -----------
+
+V4_FIXTURE = os.path.join(ROOT, "tests", "data",
+                          "consensus_obca_v4_f64_ref.npz")
+
+
+def test_committed_v4_fixture():
+    """The committed 4-vehicle JAX run (``tools/make_torch_fixture.py
+    --profile v4``) is ``tests/test_multivehicle.py``'s configuration and
+    passes that test's own checks."""
+    tool = _fixture_tool()
+    ref = np.load(V4_FIXTURE)
+    prof = tool.PROFILES["v4"]
+    assert json.loads(str(ref["profile"])) == json.loads(
+        json.dumps(prof, sort_keys=True))
+    assert prof["ocfg"] == dict(num_veh=4, horizon=8, min_dis=0.1,
+                                max_admm_iters=5, rho=100.0)
+    assert ref["states"].shape == (5, 4, 5) and len(ref["iterations"]) == 4
+    assert ref["capped_states"].shape == (2, 4, 5)
+    assert ref["v3_capped_states"].shape == (2, 3, 5)
+    assert ref["capped_iterations"].tolist() == [2]
+    states = ref["states"]
+    np.testing.assert_allclose(states[:, 0, 0], 2.0 * np.arange(5), atol=0.5)
+    np.testing.assert_allclose(states[:, 2, 0], 2.0 * np.arange(5), atol=0.5)
+    lane_y = np.array([0.0, 0.0, 6.0, 6.0])
+    assert np.abs(states[:, :, 1] - lane_y[None]).max() < 2.0
+
+
+def test_three_vehicle_capped_step_matches_jax():
+    """The multi-vehicle path (neighbour slots, pair gating at 3 pairs, the
+    edge problem's 3 pairs) against the JAX planner on the CPU: the first
+    step of the 4-vehicle configuration with 3 vehicles and the ADMM cap cut
+    to 2 (KKT widths 26 and 45; on the card 45 is the wide kernel's). The
+    4-vehicle step takes about 45 s on the CPU; the card holds it and the
+    4 steps against the same fixture (``chip_smoke.py`` phase 6)."""
+    ref = np.load(V4_FIXTURE)
+    prof = json.loads(str(ref["profile"]))
+    res = t_run_obca(
+        tcfg.Formulation.CONSENSUS,
+        ocfg=tcfg.ObcaConfig(**dict(prof["ocfg"], num_veh=3,
+                                    max_admm_iters=prof["capped_admm_iters"])),
+        scfg=tcfg.SolverConfig(**prof["scfg"]), n_steps=1, device="cpu",
+        **prof["planner"])
+    assert res.metrics.iter_history == ref["v3_capped_iterations"].tolist()
+    _close(res.states, ref["v3_capped_states"], "states")
+    assert res.extras["planner"].block_solves > 0
+
+
 # -- pieces of the planner ---------------------------------------------------
 
 @pytest.mark.parametrize("mode", ["frozen", "track_local", "track_edge"])

@@ -206,7 +206,8 @@ def test_kernel_plan_dispatches_on_width(b, kernel, bp):
         assert plan["bp"] == bp and plan["threads"] == 32 * plan["warps"]
         assert plan["blocks"] * plan["warps"] >= 2
     else:
-        assert plan["blocks"] == 2 and plan["threads"] == thomas.WIDE_THREADS
+        assert plan["blocks"] == 2 and plan["threads"] == 32 * plan["warps"]
+        assert plan["warps"] == -(-b // plan["rpw"]) <= 32
 
 
 def test_kernel_plan_spreads_systems_before_it_packs_warps():
@@ -231,14 +232,35 @@ def test_kernel_plan_shared_memory_layout():
     assert not long["hist_in_smem"]
     assert long["smem_bytes"] == 8 * thomas.warp_elems(32, 32, 400, False,
                                                        False)
-    # the wide kernel: the equilibrated variant keeps the scaled system too
+    # the wide kernel: keys, positions and rows of the candidates (1024
+    # bytes), the pivot rows int[61] rounded to 16 bytes, the candidate rows
+    # [2, 16 warps, 32 lanes x 5 columns] and pivot-column entries
+    # [2, 16 warps x 4 rows], X_k|y_k [61, 62], the row scales and the
+    # reciprocal pivots; the equilibrated variant keeps its scaled system
+    # and multipliers in device scratch and runs 8 rows a warp (8 warps)
     w = thomas.kernel_plan(1, 7, 61, torch.float64)
     w_eq = thomas.kernel_plan(1, 7, 61, torch.float64, equilibrate=True)
-    assert w_eq["smem_bytes"] - w["smem_bytes"] == 8 * (61 * 123 + 61)
+    assert (w["bp"], w["ncl"], w["rpw"], w["nt"], w["warps"]) == (
+        64, 5, 4, 0, 16)
+    assert w["smem_bytes"] == (
+        1024 + 256 + 8 * (2 * 16 * (160 + 4) + 61 * 62 + 2 * 61))
+    assert (w_eq["rpw"], w_eq["warps"]) == (8, 8)
+    assert w_eq["smem_bytes"] == (
+        1024 + 256 + 8 * (2 * 8 * (160 + 8) + 61 * 62 + 2 * 61))
+    # the float64 97 class keeps its last two column slots in shared
+    # memory: [2, 25 warps x 4 rows, 32 lanes]
+    w97 = thomas.kernel_plan(1, 7, 97, torch.float64)
+    assert (w97["ncl"], w97["rpw"], w97["nt"], w97["warps"]) == (7, 4, 2, 25)
+    # the equilibrated variant of the float64 80 class: 10 rows a warp,
+    # the last two column slots in shared memory
+    eq80 = thomas.kernel_plan(1, 7, 80, torch.float64, True)
+    assert (eq80["rpw"], eq80["nt"], eq80["warps"]) == (10, 2, 8)
+    assert w97["smem_bytes"] == 1024 + 400 + 8 * (
+        2 * 25 * (224 + 4) + 97 * 98 + 2 * 97 + 2 * 25 * 4 * 32)
 
 
 @pytest.mark.parametrize("dtype,equilibrate,b_max", [
-    (torch.float64, False, 97), (torch.float64, True, 75),
+    (torch.float64, False, 97), (torch.float64, True, 80),
     (torch.float32, False, 138), (torch.float32, True, 106)])
 def test_kernel_plan_raises_past_shared_memory(dtype, equilibrate, b_max):
     assert thomas.kernel_plan(1, 7, b_max, dtype, equilibrate)[
@@ -262,3 +284,100 @@ def test_launch_counts_reset():
     thomas.reset_counts()
     assert thomas.launches == 0
     assert thomas.launches_by_kernel == {"warp": 0, "wide": 0}
+
+
+# the wide kernel's layout over its whole range: widths 33-97 (float64) and
+# 33-138 (float32), equilibrated 33-80 and 33-106
+
+# the widths the block-per-system kernel of the earlier layout held (its
+# tile in shared memory): nothing may be narrower now
+EARLIER_WIDE_MAX = {(torch.float64, False): 97, (torch.float64, True): 75,
+                    (torch.float32, False): 138, (torch.float32, True): 106}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("equilibrate", [False, True], ids=["plain", "eq"])
+def test_wide_plan_over_its_range(dtype, equilibrate):
+    elem = torch.empty((), dtype=dtype).element_size()
+    classes = thomas.wide_classes(dtype, equilibrate)
+    assert set(classes) <= set(thomas.WIDE_CLASSES[dtype])
+    b_max = max(classes)
+    assert b_max >= EARLIER_WIDE_MAX[dtype, equilibrate]
+    for b in range(33, b_max + 1):
+        plan = thomas.kernel_plan(3, 7, b, dtype, equilibrate)
+        bp, ncl, rpw, nt = plan["bp"], plan["ncl"], plan["rpw"], plan["nt"]
+        assert plan["kernel"] == "wide" and plan["blocks"] == 3
+        # the narrowest class that holds B, and B's row fits 32 lanes
+        assert bp == min(x for x in classes if x >= b)
+        assert (ncl, rpw, nt) == classes[bp] and 2 * bp + 1 <= 32 * ncl
+        assert plan["warps"] * rpw >= b > (plan["warps"] - 1) * rpw
+        assert plan["threads"] == 32 * plan["warps"] <= 1024
+        assert plan["smem_bytes"] == thomas.wide_bytes(
+            b, elem, plan["warps"], ncl, rpw, nt) <= thomas.H100_SMEM_LIMIT
+    with pytest.raises(ValueError, match=f"B <= {b_max}"):
+        thomas.kernel_plan(1, 7, b_max + 1, dtype, equilibrate)
+
+
+def test_wide_plan_raises_with_the_largest_width_that_fits():
+    """On a device with less shared memory the error names the largest
+    width any class still holds there, and that width is planned."""
+    limit = 64 * 1024
+    with pytest.raises(ValueError, match=r"B <= (\d+)") as err:
+        thomas.kernel_plan(1, 7, 97, torch.float64, smem_limit=limit)
+    b_max = int(err.value.args[0].rsplit("B <= ", 1)[1].split()[0])
+    plan = thomas.kernel_plan(1, 7, b_max, torch.float64, smem_limit=limit)
+    assert plan["smem_bytes"] <= limit
+    for b in range(b_max + 1, 98):
+        with pytest.raises(ValueError):
+            thomas.kernel_plan(1, 7, b, torch.float64, smem_limit=limit)
+
+
+def _first_largest_rule(c):
+    """The pivot rows the kernels' rule picks on one matrix ``c [B, B]``
+    (numpy, rows swapped explicitly): at step j the first position i >= j
+    of the largest |a_ij|, a NaN above everything."""
+    a = np.array(c, dtype=np.float64)
+    b = a.shape[0]
+    order = []
+    for j in range(b):
+        col = np.abs(a[j:, j])
+        nan = np.flatnonzero(np.isnan(col))
+        p = j + (nan[0] if len(nan) else int(np.flatnonzero(
+            col == col.max())[0]))
+        order.append(p)
+        a[[j, p]] = a[[p, j]]
+        piv = a[j, j] if abs(a[j, j]) > thomas.PIVOT_FLOOR else (
+            thomas.PIVOT_FLOOR if a[j, j] >= 0 else -thomas.PIVOT_FLOOR)
+        f = a[:, j] / piv
+        row = a[j].copy()
+        a -= f[:, None] * row[None, :]
+        a[j] = row / piv
+    return order
+
+
+@pytest.mark.parametrize("case", ["ties", "nan"])
+def test_plain_pivot_order_follows_the_kernels_rule(case):
+    """Exact ties (small integers, many equal entries in a column) and a NaN
+    in a pivot column: the plain version picks the pivot rows the kernels
+    implement (first largest by position; a NaN wins)."""
+    rng = np.random.default_rng(12)
+    b = 40
+    c = rng.integers(-2, 3, size=(2, b, b)).astype(np.float64)
+    c[:, :, 0] = 1.0                     # column 0: a tie over every row
+    c[:, 5:9, 1] = 7.0                   # column 1: a tie below the top
+    if case == "nan":
+        c[1, 6, 0] = np.nan
+    pivots = []
+    thomas._gauss_jordan(torch.as_tensor(c), torch.zeros(2, b, 1,
+                                                         dtype=torch.float64),
+                         pivots)
+    got = torch.stack(pivots, 1).numpy()
+    for s in range(2):
+        want = _first_largest_rule(c[s])
+        if case == "nan" and s == 1:
+            assert want[0] == 6
+            assert got[s, 0] == 6
+        else:
+            assert want[0] == 0              # the first of the tie
+            np.testing.assert_array_equal(got[s], want)

@@ -1,17 +1,21 @@
 """Compare two checkouts of the PyTorch port on one CUDA card, in one process
-tree: the block-Thomas kernel's time per solve and the flagship's float64
-6-step slice, run in turns (parent, change, change, parent) so that both see
-the same card under the same power limit.
+tree: the block-Thomas kernel's time per solve, the flagship's float64
+6-step slice and the 4-vehicle run, in turns (parent, change, change,
+parent) so that both see the same card under the same power limit.
 
 Each turn is a fresh Python process that imports ``dlp_admm_torch`` from one
 checkout, lets it build its kernels, and
 
 * times ``solvers.thomas.block_thomas_solve`` on diagonally dominant systems
   at the flagship's shapes, (S, T, B) = (2, 7, 19), (1, 7, 20), (256, 7, 19),
-  float64 and float32: 20 calls captured as one CUDA graph, replayed;
+  float64 and float32, and at the wide kernel's, (4, 7, 33), (2, 7, 61),
+  (1, 7, 80) float64 and (1, 7, 45), (2, 7, 61) float32 equilibrated (the
+  multi-vehicle widths): 20 calls captured as one CUDA graph, replayed;
 * runs ``mpc.run_obca(Formulation.CONSENSUS, n_steps=6, device="cuda")``
   with the float64 profile and keeps every step's wall time (the first step
-  carries the set-up) and ADMM iteration count.
+  carries the set-up) and ADMM iteration count;
+* runs the 4-vehicle run of ``tests/test_multivehicle.py`` (4 steps, ADMM
+  cap 5, float64; KKT widths 33 and 80, the wide kernel's) the same way.
 
 Only entry points that every checkout of the port has are used, so the
 parent may be any earlier commit, unpacked with ``git archive`` into a
@@ -27,7 +31,12 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = ((2, 7, 19), (1, 7, 20), (256, 7, 19))
+# (shape, dtype name, equilibrate)
+CASES = tuple((sh, dt, False) for dt in ("float64", "float32")
+              for sh in ((2, 7, 19), (1, 7, 20), (256, 7, 19))) + (
+    ((4, 7, 33), "float64", False), ((2, 7, 61), "float64", False),
+    ((1, 7, 80), "float64", False), ((1, 7, 45), "float32", True),
+    ((2, 7, 61), "float32", True))
 SLICE_STEPS = 6
 
 
@@ -67,26 +76,35 @@ def worker(tree):
 
     rng = np.random.default_rng(0)
     k1 = {}
-    for dtype in (torch.float64, torch.float32):
-        for s, t, b in SHAPES:
-            diag = rng.normal(size=(s, t, b, b))
-            diag = 0.5 * (diag + np.swapaxes(diag, -1, -2)) \
-                + (b + 2.0) * np.eye(b)
-            upper = 0.3 * rng.normal(size=(s, t, b, b))
-            d, u, r = (torch.as_tensor(a, dtype=dtype, device="cuda")
-                       for a in (diag, upper, rng.normal(size=(s, t, b))))
-            k1[f"{s}x{t}x{b} {str(dtype)[6:]}"] = graph_ms(
-                lambda: thomas.block_thomas_solve(d, u, r))
+    for (s, t, b), dt, eq in CASES:
+        dtype = getattr(torch, dt)
+        diag = rng.normal(size=(s, t, b, b))
+        diag = 0.5 * (diag + np.swapaxes(diag, -1, -2)) \
+            + (b + 2.0) * np.eye(b)
+        upper = 0.3 * rng.normal(size=(s, t, b, b))
+        d, u, r = (torch.as_tensor(a, dtype=dtype, device="cuda")
+                   for a in (diag, upper, rng.normal(size=(s, t, b))))
+        k1[f"{s}x{t}x{b} {dt}{' eq' if eq else ''}"] = graph_ms(
+            lambda: thomas.block_thomas_solve(d, u, r, eq))
     res = run_obca(
         Formulation.CONSENSUS,
         ocfg=ObcaConfig(horizon=8, min_dis=0.1, rho=100.0, max_admm_iters=50),
         scfg=SolverConfig(ip_iters=40, ip_tol=1e-6), n_steps=SLICE_STEPS,
         device="cuda", dtype=torch.float64, local_prox=700.0, prox_growth=1.5,
         prox_tau_max=3.0e10)
+    v4 = run_obca(
+        Formulation.CONSENSUS,
+        ocfg=ObcaConfig(num_veh=4, horizon=8, min_dis=0.1, max_admm_iters=5,
+                        rho=100.0),
+        scfg=SolverConfig(ip_iters=40, ip_tol=1e-6), n_steps=4,
+        device="cuda", dtype=torch.float64, gate_pairs=True, gate_thres=12.0)
     print(json.dumps(dict(
         tree=tree, k1_ms=k1, step_wall_s=list(res.metrics.step_times),
         iterations=list(res.metrics.iter_history),
-        final_state=res.states[-1].tolist())), flush=True)
+        final_state=res.states[-1].tolist(),
+        v4_step_wall_s=list(v4.metrics.step_times),
+        v4_iterations=list(v4.metrics.iter_history),
+        v4_final_state=v4.states[-1].tolist())), flush=True)
 
 
 def main():
@@ -128,7 +146,12 @@ def main():
             # steps after the first, which carries the set-up
             step_wall_s=mean([w for t in mine for w in t["step_wall_s"][1:]]),
             first_step_wall_s=mean([t["step_wall_s"][0] for t in mine]),
-            iterations=mine[0]["iterations"])
+            iterations=mine[0]["iterations"],
+            v4_step_wall_s=mean([w for t in mine
+                                 for w in t["v4_step_wall_s"][1:]]),
+            v4_first_step_wall_s=mean([t["v4_step_wall_s"][0]
+                                       for t in mine]),
+            v4_iterations=mine[0]["v4_iterations"])
     print(json.dumps(summary), flush=True)
     if args.out:
         with open(args.out, "w") as f:

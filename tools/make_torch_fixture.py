@@ -9,7 +9,17 @@ on the CPU through ``ConsensusObcaPlanner.run_scan(return_health=True)``, all
   ``tests/data/consensus_obca_f64_ref.npz``;
 * ``f32``: float32, ``ip_tol=1e-4``, ``prox_tau_max=1e9`` (equilibrated
   stage solves, two refinement passes), run with JAX's 64-bit mode off as
-  the accelerator runs it, saved as ``tests/data/consensus_obca_f32_ref.npz``.
+  the accelerator runs it, saved as ``tests/data/consensus_obca_f32_ref.npz``;
+* ``v4``: the 4-vehicle run of ``tests/test_multivehicle.py``
+  (``TestConsensusMultiVehicle.test_four_vehicle_two_lane_overtake``: two
+  overtaking pairs in adjacent lanes, horizon 8, rho 100, ADMM cap 5,
+  ``ip_iters=40``, ``ip_tol=1e-6``, pairs gated at 12 m, float64) through
+  ``ConsensusObcaPlanner.run``, 4 MPC steps, and the same configuration's
+  first step with the ADMM cap cut to 2 (``capped_*``), and that capped
+  step with 3 vehicles (``v3_capped_*``: the CPU test's, whose edge width
+  45 is also the wide kernel's and which costs a third of the 4-vehicle
+  step on the CPU), saved as ``tests/data/consensus_obca_v4_f64_ref.npz``.
+  Its KKT widths (locals 33, edge 80) are the wide kernel's.
 
 Each file holds
 
@@ -17,7 +27,11 @@ Each file holds
     nlp_ok [42, 2], nlp_kkt [42, 2], gaps [42],
     profile (JSON string), commit (git revision of the tree that ran it)
 
-``tests/test_torch_obca.py`` and ``chip_smoke.py`` read it.
+(``v4``: ``states [5, 4, 5]``, ``iterations [4]``, ``primal``, ``dual``,
+``nlp_ok``, ``nlp_kkt``, ``capped_states [2, 4, 5]``,
+``capped_iterations [1]``, ``v3_capped_states [2, 3, 5]``,
+``v3_capped_iterations [1]``, no ``gaps``.) ``tests/test_torch_obca.py`` and
+``chip_smoke.py`` read it.
 
 ``--noise EPS`` adds normal noise of that size (``--seed``) to the consensus
 iterate ``z_bar`` the run starts from and saves nothing unless ``--out`` is
@@ -26,7 +40,7 @@ numbers printed at the end (steps under the residual thresholds, centre
 distance, NLP health, consensus gap) are properties of the planner and how
 far of one trajectory through the conflict window.
 
-Usage: python tools/make_torch_fixture.py [--profile f64|f32] [--steps N]
+Usage: python tools/make_torch_fixture.py [--profile f64|f32|v4] [--steps N]
            [--out PATH] [--noise EPS --seed N]
 """
 import argparse
@@ -63,25 +77,62 @@ PROFILES = dict(
     f32=dict(PROFILE, scfg=dict(ip_iters=40, ip_tol=1e-4),
              planner=dict(local_prox=700.0, prox_growth=1.5,
                           prox_tau_max=1.0e9),
-             dtype="float32"))
+             dtype="float32"),
+    v4=dict(ocfg=dict(num_veh=4, horizon=8, min_dis=0.1, max_admm_iters=5,
+                      rho=100.0),
+            scfg=dict(ip_iters=40, ip_tol=1e-6),
+            planner=dict(gate_pairs=True, gate_thres=12.0),
+            dtype="float64", steps=4, capped_admm_iters=2))
 
 
 def default_out(name):
+    stem = "v4_f64" if name == "v4" else name
     return os.path.join(ROOT, "tests", "data",
-                        f"consensus_obca_{name}_ref.npz")
+                        f"consensus_obca_{stem}_ref.npz")
 
 
 DEFAULT_OUT = default_out("f64")
 
 
-def make_planner(name="f64"):
-    """The JAX planner of profile ``name``. The float32 planner needs JAX's
-    64-bit mode off (``jax.enable_x64(False)`` around its use)."""
+def make_planner(name="f64", **ocfg):
+    """The JAX planner of profile ``name`` (``ocfg`` overrides fields of its
+    ``ObcaConfig``). The float32 planner needs JAX's 64-bit mode off
+    (``jax.enable_x64(False)`` around its use)."""
     prof = PROFILES[name]
-    return ConsensusObcaPlanner(ObcaConfig(**prof["ocfg"]),
+    return ConsensusObcaPlanner(ObcaConfig(**{**prof["ocfg"], **ocfg}),
                                 scfg=SolverConfig(**prof["scfg"]),
                                 dtype=getattr(jax.numpy, prof["dtype"]),
                                 **prof["planner"])
+
+
+def write_v4(out, commit):
+    """The 4-vehicle run and its capped first step, through ``run`` as
+    ``tests/test_multivehicle.py`` calls it."""
+    prof = PROFILES["v4"]
+    t0 = time.perf_counter()
+    states, its, res, _ = make_planner("v4").run(n_steps=prof["steps"])
+    capped, capped_its, _, _ = make_planner(
+        "v4", max_admm_iters=prof["capped_admm_iters"]).run(n_steps=1)
+    v3, v3_its, _, _ = make_planner(
+        "v4", max_admm_iters=prof["capped_admm_iters"], num_veh=3).run(
+            n_steps=1)
+    res = np.asarray(res, dtype=np.float64)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(
+        out, states=np.asarray(states), iterations=np.asarray(its),
+        primal=res[:, 0], dual=res[:, 1], nlp_ok=res[:, 2:4],
+        nlp_kkt=res[:, 4:6], capped_states=np.asarray(capped),
+        capped_iterations=np.asarray(capped_its),
+        v3_capped_states=np.asarray(v3),
+        v3_capped_iterations=np.asarray(v3_its),
+        profile=np.asarray(json.dumps(prof, sort_keys=True)),
+        commit=np.asarray(commit))
+    print(json.dumps(dict(
+        out=os.path.relpath(out, ROOT), profile="v4",
+        seconds=round(time.perf_counter() - t0, 1),
+        iterations=np.asarray(its).tolist(),
+        capped_iterations=np.asarray(capped_its).tolist(),
+        v3_capped_iterations=np.asarray(v3_its).tolist(), commit=commit)))
 
 
 def main():
@@ -98,9 +149,11 @@ def main():
     args = ap.parse_args()
     if not args.noise:
         args.out = args.out or default_out(args.profile)
-    jax.config.update("jax_enable_x64", args.profile == "f64")
+    jax.config.update("jax_enable_x64", args.profile != "f32")
     commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
                             capture_output=True, text=True).stdout.strip()
+    if args.profile == "v4":
+        return write_v4(args.out, commit)
     t0 = time.perf_counter()
     planner = make_planner(args.profile)
     if args.noise:

@@ -44,7 +44,20 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    that hold whichever branch the chaotic conflict window takes (42 steps,
    finite states, overtake completed, footprints apart by more than
    ``min_dis``, at least 39 of 42 steps under the residual thresholds); the
-   other pins of ``tests/test_flagship_convergence.py`` are printed.
+   other pins of ``tests/test_flagship_convergence.py`` are printed;
+9. the PI-ADMM path, ``PiAdmmEngine(layout="pairwise").run_fused_batch``
+   at the width of ``bench.py``'s first metric (16 vehicles, horizon 30,
+   per-step cap 60, whole-run budget 210, 24 pairs a lane, 12 MPC steps):
+   in float64 on the first 2 of the bench's seeded starts, held against the
+   committed JAX run ``tests/data/pi_admm_bench_f64_ref.npz`` (equal
+   iteration counts, states within 1e-6, up to the (lane, step) where the
+   JAX run itself, its start moved by 1e-12, leaves itself; the rest is
+   printed); in float32 on the bench's own 32 lanes, one warm-up call and
+   one timed call, held to ``bench.py``'s gates (finite states, minimum
+   pairwise distance > 1.0 m, converged fraction >= 0.93) with the JAX
+   float32 run ``tests/data/pi_admm_bench_f32_ref.npz`` printed beside it;
+   a second call and a call with a chunk of one trip give the same bits in
+   every record; no block-Thomas kernel is launched on this path.
 
 Every path is driven with the launch counts set to 0 just before and read
 just after. Prints, before the last line, one JSON object with the kernels'
@@ -69,6 +82,8 @@ DATA = os.path.join(ROOT, "tests", "data")
 FIXTURE = os.path.join(DATA, "consensus_obca_f64_ref.npz")
 FIXTURE_F32 = os.path.join(DATA, "consensus_obca_f32_ref.npz")
 FIXTURE_V4 = os.path.join(DATA, "consensus_obca_v4_f64_ref.npz")
+FIXTURE_PI = os.path.join(DATA, "pi_admm_bench_f64_ref.npz")
+FIXTURE_PI_F32 = os.path.join(DATA, "pi_admm_bench_f32_ref.npz")
 SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (256, 7, 19))   # B <= 32
 # B > 32: the 4-vehicle local and edge widths 33 and 80, the 3-vehicle edge
 # width 45 (at 43), the 8-vehicle local width 61, and 97, the float64 bound
@@ -104,6 +119,16 @@ STATE_TOL = 1e-6            # port vs JAX fixture, float64 states
 # then agree to about 1e-3; the port on the CPU is 1.6e-3 from the same run.
 STATE_TOL_F32 = 1e-2
 SMOKE_STEPS = 6
+# PI-ADMM bench, float64: per lane, the first step at which the JAX run,
+# its start moved by 1e-12, leaves itself (`python tools/make_torch_fixture.py
+# --profile pi_admm --noise 1e-12 --seed 1|2|3`: lane 0 at step 4, the
+# step its loop caps at 60 iterations, by 0.05-0.17 m; lane 1 at step 2, 42
+# iterations, by 3e-4-8.5e-4 m; before them by at most 1.3e-6). Rounding is
+# amplified as much there, so the strict check stops before them.
+PI_CHAOTIC_FROM = (4, 2)
+# bench.py:32-33, the gates of its first metric
+PI_MIN_DIST_GATE = 1.0
+PI_CONV_FRAC_GATE = 0.93
 DEVICE = "cuda"
 # NVIDIA H100 SXM data sheet: HBM3 rate and the vector (non-tensor-core)
 # peaks; FP64 vector is half the FP32 rate
@@ -731,6 +756,9 @@ def main():
     records["kernel_on_run_blocks"] = real
     records["clock_split"] = clock_split(thomas, systems)
 
+    # -- 9. the PI-ADMM path (bench.py's first metric) -----------------
+    records["pi_admm"] = pi_admm_path(thomas, paths, smi)
+
     # -- 8. --full ------------------------------------------------------
     if args.full:
         records["full"] = {}
@@ -760,6 +788,136 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def bench_engine(prof, dtype):
+    """``bench.py``'s PI-ADMM engine (its first metric) on the card, from a
+    fixture's profile."""
+    from dlp_admm_torch.config import (DualUpdateConfig, PiAdmmConfig,
+                                       SolverConfig)
+    from dlp_admm_torch.models.pi_admm import PiAdmmEngine
+    from dlp_admm_torch.scenarios import pi_admm_overtake_refs
+    v = prof["num_veh"]
+    cfg = PiAdmmConfig(num_veh=v, horizon=prof["horizon"],
+                       speeds=tuple(8.0 if i % 2 == 0 else 4.0
+                                    for i in range(v)),
+                       iter_num=prof["iter_cap"], **prof["cfg"])
+    refs, _ = pi_admm_overtake_refs(cfg)
+    return PiAdmmEngine(cfg, DualUpdateConfig(**prof["dual"]),
+                        SolverConfig(**prof["solver"]), refs=refs,
+                        dtype=dtype, device=DEVICE, **prof["engine"])
+
+
+def fused_run(thomas, eng, prof, xts, chunk=None):
+    """One ``run_fused_batch`` call on the card between two synchronizes;
+    returns the records as numpy arrays, the wall seconds, the trips the
+    loop executed and the block-Thomas launches (counted and captured)
+    during the call, which must be none."""
+    kw = {} if chunk is None else dict(chunk=chunk)
+    us = np.zeros(xts.shape[:2] + (prof["horizon"],), xts.dtype)
+    thomas.reset_counts()
+    captured = dict(thomas.captured)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = eng.run_fused_batch(xts, us, prof["n_steps"], prof["iter_budget"],
+                              **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = dict(thomas.launches_by_kernel)
+    k1_captured = {k: n - captured[k] for k, n in thomas.captured.items()}
+    if any(k1.values()) or any(k1_captured.values()):
+        raise RuntimeError(f"the PI-ADMM path launched block-Thomas kernels: "
+                           f"{k1}, captured {k1_captured}")
+    rec = {k: x.cpu().numpy() for k, x in rec._asdict().items()}
+    return rec, wall, eng.fused_trips, k1
+
+
+def fused_quality(xts, rec):
+    """bench.py's quality numbers: minimum pairwise distance over every
+    visited state, converged fraction, capped lanes, finiteness."""
+    h = np.concatenate([xts[:, None], rec["xt"]], axis=1)[..., :2]
+    d = np.linalg.norm(h[:, :, :, None] - h[:, :, None], axis=-1)
+    v = h.shape[2]
+    capped = int(np.sum(~rec["converged"]))
+    return dict(min_distance_m=float((d + 1e9 * np.eye(v)).min()),
+                converged_fraction=1.0 - capped / rec["converged"].size,
+                capped_lanes=capped, finite=bool(np.all(np.isfinite(h))))
+
+
+def same_bits(name, a, b):
+    for k in a:
+        if not np.array_equal(a[k], b[k]):
+            raise RuntimeError(f"{name}: {k} differs")
+
+
+def pi_admm_path(thomas, paths, smi):
+    """Phase 9: the PI-ADMM pairwise engine's fused batch at the width of
+    bench.py's first metric, float64 against the JAX fixture and float32 on
+    the bench's own run, repeatability and chunking."""
+    out = {}
+    # -- 9.1 float64, the fixture's 2 lanes ------------------------------
+    ref = np.load(FIXTURE_PI)
+    prof = json.loads(str(ref["profile"]))
+    eng = bench_engine(prof, torch.float64)
+    rec, wall, trips, k1 = fused_run(thomas, eng, prof, ref["xts0"])
+    paths["PI-ADMM fused batch float64"] = k1
+    err = np.abs(rec["xt"] - ref["xt"]).max(axis=(2, 3))        # [S, steps]
+    rows = []
+    for lane in range(err.shape[0]):
+        strict = PI_CHAOTIC_FROM[lane]
+        row = dict(lane=lane, iterations=rec["iterations"][lane].tolist(),
+                   jax_iterations=ref["iterations"][lane].tolist(),
+                   max_state_err_per_step=err[lane].tolist(),
+                   strict_steps=strict)
+        log("PI-ADMM float64 vs JAX: " + json.dumps(row))
+        rows.append(row)
+        if not np.array_equal(rec["iterations"][lane, :strict],
+                              ref["iterations"][lane, :strict]):
+            raise RuntimeError(f"PI-ADMM float64 lane {lane}: iterations "
+                               f"differ from JAX before step {strict}")
+        if not err[lane, :strict].max() <= STATE_TOL:
+            raise RuntimeError(f"PI-ADMM float64 lane {lane}: states "
+                               f"{err[lane, :strict].max():.3e} from JAX "
+                               f"before step {strict}")
+    out["float64"] = dict(lanes=rows, wall_s=wall, trips=trips,
+                          quality=fused_quality(ref["xts0"], rec),
+                          jax_quality=dict(min_distance_m=float(
+                              ref["min_distance_m"])))
+    # -- 9.2 float32, bench.py's own run ----------------------------------
+    ref32 = np.load(FIXTURE_PI_F32)
+    prof32 = json.loads(str(ref32["profile"]))
+    xts = ref32["xts0"]
+    eng = bench_engine(prof32, torch.float32)
+    warm, warm_wall, _, _ = fused_run(thomas, eng, prof32, xts)
+    rec, wall, trips, k1 = fused_run(thomas, eng, prof32, xts)
+    paths["PI-ADMM fused batch float32"] = k1
+    one, _, one_trips, _ = fused_run(thomas, eng, prof32, xts, chunk=1)
+    # -- 9.3 repeatability and chunking -----------------------------------
+    same_bits("PI-ADMM float32, second call", warm, rec)
+    same_bits("PI-ADMM float32, chunk 1", one, rec)
+    q = fused_quality(xts, rec)
+    its = rec["iterations"]
+    totals = its.sum(axis=1)
+    jq = dict(min_distance_m=float(ref32["min_distance_m"]),
+              converged_fraction=1.0 - float(np.sum(~ref32["converged"]))
+              / ref32["converged"].size,
+              capped_lanes=int(np.sum(~ref32["converged"])),
+              lane_totals=ref32["iterations"].sum(axis=1).tolist())
+    row = dict(wall_s=wall, warmup_wall_s=warm_wall,
+               iterations_per_s=float(its.sum()) / wall,
+               total_iterations=int(its.sum()), executed_trips=trips,
+               chunk_one_trips=one_trips,
+               max_lane_total=int(totals.max()),
+               loop_efficiency=float(totals.mean()) / trips,
+               lane_totals=totals.tolist(), **q, jax_cpu_run=jq,
+               nvidia_smi=smi)
+    log("PI-ADMM float32 bench run: " + json.dumps(row))
+    if not (q["finite"] and q["min_distance_m"] > PI_MIN_DIST_GATE
+            and q["converged_fraction"] >= PI_CONV_FRAC_GATE):
+        raise RuntimeError(f"PI-ADMM float32 bench run fails bench.py's "
+                           f"gates: {q}")
+    out["float32"] = row
+    return out
 
 
 PHASES = {"warp": ("load", "equilibrate", "eliminate", "refine",

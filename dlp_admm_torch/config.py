@@ -233,8 +233,7 @@ class SolverConfig:
     qp_alpha: float = 1.6
     qp_tol: float = 1.0e-6
     # condensed-KKT inverse strategy of the QP solver: "ns" (Newton-Schulz
-    # from a diagonal seed) or "chol" (exact, via Cholesky). The QP solver
-    # is not ported yet; the fields are kept so the configs match.
+    # from a diagonal seed) or "chol" (exact, via Cholesky)
     qp_kkt: str = "ns"
     qp_ns_iters: int = 18
     # number of QP iteration segments (rho adapted between segments)

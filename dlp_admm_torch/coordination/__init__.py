@@ -1,1 +1,2 @@
-"""Dual-update strategies (port of ``dlp_admm_tpu.coordination``)."""
+"""Dual-update strategies and ADMM residuals (port of
+``dlp_admm_tpu.coordination``)."""

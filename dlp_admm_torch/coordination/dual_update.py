@@ -12,7 +12,9 @@ of ``(r, sum_err, diff_val, d_min)``:
 
 Windup modes: NONE (no clip), SAT (clip only), SAT_BACKCALC (clip + feed
 ``lam_sat - lam_raw`` to the integrator next iteration). Every function
-broadcasts over arbitrary leading axes.
+broadcasts over arbitrary leading axes. ``update_dual(..., lane_dims=L)``
+treats the first L axes as independent lanes (one scenario each): the
+adaptive ``rho`` is then one per lane, from that lane's own ``d_min``.
 """
 from __future__ import annotations
 
@@ -32,6 +34,13 @@ class DualState(NamedTuple):
     rho: torch.Tensor       # scalar penalty (may be adapted per iteration)
 
 
+def init_dual_state(shape, rho: float, dtype=torch.float32,
+                    device="cpu") -> DualState:
+    z = torch.zeros(shape, dtype=dtype, device=device)
+    return DualState(dual=z, sum_err=z, diff_val=z,
+                     rho=torch.tensor(rho, dtype=dtype, device=device))
+
+
 def _apply_windup(raw: torch.Tensor, cfg: DualUpdateConfig):
     """Returns (saturated dual, back-calculation term)."""
     if cfg.windup is WindupMode.NONE:
@@ -43,16 +52,26 @@ def _apply_windup(raw: torch.Tensor, cfg: DualUpdateConfig):
 
 
 def update_dual(state: DualState, r: torch.Tensor, d_min: torch.Tensor,
-                cfg: DualUpdateConfig) -> DualState:
+                cfg: DualUpdateConfig, lane_dims: int = 0) -> DualState:
     """One dual update; ``r`` is the consensus error and ``d_min`` the minimum
-    predicted inter-vehicle distance (scalar or broadcastable per pair)."""
+    predicted inter-vehicle distance (scalar or broadcastable per pair).
+
+    ``lane_dims``: the number of leading lane axes of ``r`` and ``d_min``
+    (0: none). ``state.rho`` has the lane shape, and the adaptive ``rho``
+    takes the minimum of ``d_min`` over each lane's own axes."""
     rho = state.rho
     d_min = torch.as_tensor(d_min, dtype=state.dual.dtype,
                             device=state.dual.device)
     if cfg.strategy is DualStrategy.PI_RECIPROCAL and cfg.adaptive_rho:
-        # rho stays a scalar — with per-pair d_min the global minimum governs
-        rho = torch.clamp(cfg.rho_num / torch.min(d_min), cfg.rho_lo,
+        # rho stays one number per lane — with per-pair d_min the lane's
+        # minimum governs
+        d_lo = (torch.min(d_min) if lane_dims == 0 else torch.amin(
+            d_min, dim=tuple(range(lane_dims, d_min.ndim))))
+        rho = torch.clamp(cfg.rho_num / d_lo, cfg.rho_lo,
                           cfg.rho_hi).to(state.dual.dtype)
+    rho_out = rho
+    # per-lane rho broadcast over each lane's cells
+    rho = rho.reshape(rho.shape + (1,) * (r.ndim - rho.ndim))
 
     if cfg.strategy is DualStrategy.PLAIN:
         raw = state.dual + rho * r + state.diff_val
@@ -73,4 +92,5 @@ def update_dual(state: DualState, r: torch.Tensor, d_min: torch.Tensor,
         raise ValueError(f"unknown strategy {cfg.strategy}")
 
     dual, diff_val = _apply_windup(raw, cfg)
-    return DualState(dual=dual, sum_err=sum_err, diff_val=diff_val, rho=rho)
+    return DualState(dual=dual, sum_err=sum_err, diff_val=diff_val,
+                     rho=rho_out)

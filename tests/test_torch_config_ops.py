@@ -196,3 +196,36 @@ def test_update_dual(strategy, windup):
     want = jdual.update_dual(js, jnp.asarray(r), jnp.asarray(d_min), jc)
     for name, x, y in zip(tdual.DualState._fields, got, want):
         np.testing.assert_allclose(_np(x), np.asarray(y), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("strategy", ["PLAIN", "PI_SIGMOID", "PI_RECIPROCAL"])
+def test_update_dual_per_lane(strategy):
+    """``lane_dims=1``: a batch of 3 lanes (one scenario each) gives each
+    lane the JAX update of that lane alone; the adaptive rho takes each
+    lane's own minimum distance, not the minimum over all lanes."""
+    rng = np.random.default_rng(8)
+    shape = (3, 6, 2, 2, 5)                      # [S, P, sides, xy, H+1]
+    dual, sum_err, diff_val, r = (rng.normal(scale=9.0, size=shape)
+                                  for _ in range(4))
+    d_min = rng.uniform(0.5, 6.0, size=(3, 6, 1, 1, 1))
+    rho = rng.uniform(1.0, 5.0, size=3)
+    kw = dict(windup_sat=15.0, adaptive_rho=True)
+    jc = jcfg.DualUpdateConfig(strategy=jcfg.DualStrategy[strategy], **kw)
+    tc = tcfg.DualUpdateConfig(strategy=tcfg.DualStrategy[strategy], **kw)
+    got = tdual.update_dual(
+        tdual.DualState(*(torch.as_tensor(a) for a in (dual, sum_err,
+                                                       diff_val, rho))),
+        torch.as_tensor(r), torch.as_tensor(d_min), tc, lane_dims=1)
+    assert got.rho.shape == (3,)
+    for s in range(3):
+        want = jdual.update_dual(
+            jdual.DualState(*(jnp.asarray(a[s]) for a in (dual, sum_err,
+                                                          diff_val, rho))),
+            jnp.asarray(r[s]), jnp.asarray(d_min[s]), jc)
+        for name, x, y in zip(tdual.DualState._fields, got, want):
+            np.testing.assert_allclose(_np(x[s]), np.asarray(y),
+                                       err_msg=name, **TOL)
+    z = tdual.init_dual_state((2, 3), 2.5, F64)
+    zj = jdual.init_dual_state((2, 3), 2.5, jnp.float64)
+    for name, x, y in zip(tdual.DualState._fields, z, zj):
+        np.testing.assert_array_equal(_np(x), np.asarray(y), err_msg=name)

@@ -301,3 +301,49 @@ def test_float32_run_repeats_bit_for_bit(cuda, tmp_path):
             assert other["final_digest"] == first["final_digest"], job
             rows = [tuple(r) for r in other["rows"]]
             assert tool.first_parting(first["rows"], rows) is None, job
+
+
+def _pi_admm_fused(device, dtype=torch.float64):
+    """tests/test_pi_admm.py::TestFusedRunner's fused batch (4 vehicles,
+    horizon 8, 2 lanes, 16 steps) on the port, on ``device``."""
+    from dlp_admm_torch.config import (DualUpdateConfig, PiAdmmConfig,
+                                       SolverConfig)
+    from dlp_admm_torch.models.pi_admm import PiAdmmEngine
+    from dlp_admm_torch.scenarios import pi_admm_overtake_refs
+    cfg = PiAdmmConfig(num_veh=4, horizon=8, speeds=(8.0, 4.0, 8.0, 4.0),
+                       dis_thres=3.5, iter_num=20, eps_pri=0.5, eps_dual=0.5,
+                       stop_needs_clearance=False, eps_per_edge=True)
+    refs, xt0 = pi_admm_overtake_refs(cfg)
+    eng = PiAdmmEngine(cfg, DualUpdateConfig(windup_sat=200.0),
+                       SolverConfig(qp_iters=16, qp_tol=1e-4, qp_segments=1,
+                                    qp_ns_iters=10, qp_unroll=16),
+                       layout="pairwise", refs=refs, n_sqp=1,
+                       carry_admm_state=True, dtype=dtype, device=device)
+    rng = np.random.default_rng(0)
+    xts = xt0[None] + np.concatenate([0.4 * rng.normal(size=(2, 4, 2)),
+                                      np.zeros((2, 4, 1))], axis=-1)
+    return eng, xts, np.zeros((2, 4, 8))
+
+
+@pytest.mark.cuda
+def test_graphed_pi_admm_fused_batch_matches_cpu(cuda):
+    """The fused PI-ADMM loop on the card (one eager trip, then replays of
+    its CUDA graph) gives the CPU's records: equal iterations and flags,
+    states within 1e-8; chunks of 1 and 8 trips give the same bits."""
+    eng, xts, us = _pi_admm_fused(cuda)
+    got = eng.run_fused_batch(xts, us, 16)
+    trips = eng.fused_trips
+    one = eng.run_fused_batch(xts, us, 16, chunk=1)
+    one_trips = eng.fused_trips
+    ceng, _, _ = _pi_admm_fused("cpu")
+    want = ceng.run_fused_batch(xts, us, 16)
+    for name, x in got._asdict().items():
+        assert torch.equal(x, getattr(one, name)), name
+        w = getattr(want, name)
+        if x.dtype in (torch.bool, torch.int32):
+            assert torch.equal(x.cpu(), w), name
+        else:
+            torch.testing.assert_close(x.cpu(), w, rtol=0, atol=1e-8,
+                                       msg=name)
+    longest = int(want.iterations.sum(dim=1).max())
+    assert one_trips == longest and trips % 8 == 0 and trips >= longest

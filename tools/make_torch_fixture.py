@@ -21,7 +21,18 @@ on the CPU through ``ConsensusObcaPlanner.run_scan(return_health=True)``, all
   step on the CPU), saved as ``tests/data/consensus_obca_v4_f64_ref.npz``.
   Its KKT widths (locals 33, edge 80) are the wide kernel's.
 
-Each file holds
+* ``pi_admm``: ``bench.py``'s first workload (the pairwise PI-ADMM engine,
+  16 vehicles overtaking in 8 lanes, horizon 30, per-step cap 60, whole-run
+  budget 210, ``pair_budget`` 24, ``edge_prox_tau`` 2, cross-step consensus
+  carry) at float64, on the first 2 of the bench's 32 seeded starts
+  (``default_rng(0)``, 0.5 m noise), 12 MPC steps through
+  ``run_fused_batch``; also the lane-0 ``AdmmCarry`` after step 0 (the
+  per-step driver's) and one ``_pairwise_iter`` of step 1 started from it,
+  saved as ``tests/data/pi_admm_bench_f64_ref.npz``;
+* ``pi_admm_f32``: ``bench.py``'s own float32 run of that workload (32
+  lanes, 12 steps), saved as ``tests/data/pi_admm_bench_f32_ref.npz``.
+
+Each OBCA file holds
 
     states [43, 2, 5], iterations [42], primal [42], dual [42],
     nlp_ok [42, 2], nlp_kkt [42, 2], gaps [42],
@@ -31,17 +42,28 @@ Each file holds
 ``nlp_ok``, ``nlp_kkt``, ``capped_states [2, 4, 5]``,
 ``capped_iterations [1]``, ``v3_capped_states [2, 3, 5]``,
 ``v3_capped_iterations [1]``, no ``gaps``.) ``tests/test_torch_obca.py`` and
-``chip_smoke.py`` read it.
+``chip_smoke.py`` read it. The PI-ADMM files hold the fused batch's
+records ``xt [S, 12, 16, 3]``, ``u_applied [S, 12, 16]``, ``iterations``,
+``primal_res``, ``dual_res``, ``converged`` (each ``[S, 12]``), ``xts0``
+(the starts), ``min_distance_m`` and ``profile``/``commit``; the float64 file
+also ``carry0_*`` (the ``AdmmCarry`` fields, ``xt``, ``u``) and ``iter1_*``
+(the iteration's carry but ``last_hat``, which is its ``hat``).
 
 ``--noise EPS`` adds normal noise of that size (``--seed``) to the consensus
 iterate ``z_bar`` the run starts from and saves nothing unless ``--out`` is
 given: a rounding-level change of the start shows how far the 42-step
 numbers printed at the end (steps under the residual thresholds, centre
 distance, NLP health, consensus gap) are properties of the planner and how
-far of one trajectory through the conflict window.
+far of one trajectory through the conflict window. With ``--profile
+pi_admm`` the noise goes on the lanes' start states instead, and the run
+prints, per lane and step, its largest state distance from the committed
+float64 fixture and where the iteration counts part: a rounding-level change
+of the start shows at which (lane, step) the JAX run leaves itself
+(``pi_admm_f32``: the same against the float32 fixture, with the run's
+capped steps, converged fraction and minimum distance).
 
-Usage: python tools/make_torch_fixture.py [--profile f64|f32|v4] [--steps N]
-           [--out PATH] [--noise EPS --seed N]
+Usage: python tools/make_torch_fixture.py [--profile f64|f32|v4|pi_admm|pi_admm_f32]
+           [--steps N] [--out PATH] [--noise EPS --seed N]
 """
 import argparse
 import json
@@ -85,7 +107,24 @@ PROFILES = dict(
             dtype="float64", steps=4, capped_admm_iters=2))
 
 
+# bench.py:55-107, the PI-ADMM workload of its first metric
+PI_ADMM = dict(num_veh=16, horizon=30, n_scen=32, n_steps=12, iter_budget=210,
+               iter_cap=60, noise=0.5, seed=0,
+               cfg=dict(dis_thres=2.0, eps_pri=1.0, eps_dual=1.0,
+                        stop_needs_clearance=False, eps_per_edge=True),
+               dual=dict(windup_sat=200.0),
+               solver=dict(qp_iters=16, qp_tol=1e-4, qp_segments=1,
+                           qp_ns_iters=10, qp_unroll=16),
+               engine=dict(layout="pairwise", n_sqp=1, pair_budget=24,
+                           carry_admm_state=True, edge_prox_tau=2.0))
+PI_ADMM_LANES = dict(pi_admm=2, pi_admm_f32=32)
+
+
 def default_out(name):
+    if name in PI_ADMM_LANES:
+        stem = "f64" if name == "pi_admm" else "f32"
+        return os.path.join(ROOT, "tests", "data",
+                            f"pi_admm_bench_{stem}_ref.npz")
     stem = "v4_f64" if name == "v4" else name
     return os.path.join(ROOT, "tests", "data",
                         f"consensus_obca_{stem}_ref.npz")
@@ -135,9 +174,112 @@ def write_v4(out, commit):
         v3_capped_iterations=np.asarray(v3_its).tolist(), commit=commit)))
 
 
+def bench_engine(dtype):
+    """``bench.py``'s PI-ADMM engine and its seeded starts ``[32, 16, 3]``
+    (float64 numpy, as bench.py makes them before its cast)."""
+    from dlp_admm_tpu.config import DualUpdateConfig, PiAdmmConfig
+    from dlp_admm_tpu.models.pi_admm import PiAdmmEngine
+    from dlp_admm_tpu.scenarios import pi_admm_overtake_refs
+    b = PI_ADMM
+    v = b["num_veh"]
+    speeds = tuple(8.0 if i % 2 == 0 else 4.0 for i in range(v))
+    cfg = PiAdmmConfig(num_veh=v, horizon=b["horizon"], speeds=speeds,
+                       iter_num=b["iter_cap"], **b["cfg"])
+    refs, xt0 = pi_admm_overtake_refs(cfg)
+    eng = PiAdmmEngine(cfg, DualUpdateConfig(**b["dual"]),
+                       SolverConfig(**b["solver"]), refs=refs, dtype=dtype,
+                       **b["engine"])
+    rng = np.random.default_rng(b["seed"])
+    xts = xt0[None] + np.concatenate([
+        b["noise"] * rng.normal(size=(b["n_scen"],) + xt0[:, :2].shape),
+        np.zeros((b["n_scen"], v, 1))], axis=-1)
+    return eng, xts
+
+
+def write_pi_admm(name, out, commit, noise=0.0, seed=0):
+    """The fused batch of bench.py's first metric on the first lanes of its
+    starts; in float64 also the lane-0 carry after step 0 and one iteration
+    of step 1 from it. With ``noise``, the starts get normal noise of that
+    size (``seed``), nothing is saved, and the distance per (lane, step)
+    from the committed float64 fixture is printed."""
+    jnp = jax.numpy
+    f64 = name == "pi_admm"
+    dtype = jnp.float64 if f64 else jnp.float32
+    b = PI_ADMM
+    eng, xts = bench_engine(dtype)
+    xts = np.asarray(xts[:PI_ADMM_LANES[name]], np.float64 if f64
+                     else np.float32)
+    s, v, h = xts.shape[0], b["num_veh"], b["horizon"]
+    if noise:
+        xts = xts + noise * np.random.default_rng(seed).normal(size=xts.shape)
+    t0 = time.perf_counter()
+    rec = eng.run_fused_batch(jnp.asarray(xts), jnp.zeros((s, v, h), dtype),
+                              b["n_steps"], b["iter_budget"])
+    jax.block_until_ready(rec.xt)
+    secs = time.perf_counter() - t0
+    rec = {k: np.asarray(x) for k, x in rec._asdict().items()}
+    hist = np.concatenate([xts[:, None], rec["xt"]], axis=1)[..., :2]
+    d = np.linalg.norm(hist[:, :, :, None] - hist[:, :, None], axis=-1)
+    min_dist = float((d + 1e9 * np.eye(v)).min())
+    if noise:
+        ref = np.load(default_out(name))
+        err = np.abs(rec["xt"] - ref["xt"][:s]).max(axis=(2, 3))
+        capped = int((~rec["converged"]).sum())
+        print(json.dumps(dict(
+            profile=name, noise=noise, seed=seed, seconds=round(secs, 1),
+            iterations=rec["iterations"].tolist(),
+            fixture_iterations=ref["iterations"][:s].tolist(),
+            max_state_dist_per_step=err.tolist(), capped=capped,
+            converged_fraction=1.0 - capped / rec["converged"].size,
+            min_distance_m=min_dist, commit=commit)))
+        return
+    extra = {}
+    if f64:
+        xt = jnp.asarray(xts[0])
+        u = jnp.zeros((v, h), dtype)
+        xt1, u1, carry, _ = eng._mpc_step_carry(
+            xt, u, eng.init_admm_carry(), jnp.asarray(0, jnp.int32))
+        extra.update({f"carry0_{k}": np.asarray(x)
+                      for k, x in carry._asdict().items()})
+        extra.update(carry0_xt=np.asarray(xt1), carry0_u=np.asarray(u1))
+        # one iteration of step 1, as the per-step driver starts it
+        u_s = jnp.concatenate([u1[:, 1:], u1[:, -1:]], axis=1)
+        c0 = eng._pairwise_carry0(u_s, eng.shift_admm_carry(carry))
+        cfg = eng.cfg
+        seed = jnp.stack(
+            [xt1[:, 0] + cfg.dt * eng.spd * jnp.cos(xt1[:, 2]),
+             xt1[:, 1] + cfg.dt * eng.spd * jnp.sin(xt1[:, 2])], axis=1)
+        it = jax.jit(lambda c: eng._pairwise_iter(
+            xt1, seed, eng._local_affines(xt1),
+            eng._ref_window(jnp.asarray(1, jnp.int32)), eng._side_of_map(),
+            c))(c0)
+        for k, x in it.items():
+            if k == "last_hat":               # the iteration's hat again
+                continue
+            if k == "dual":
+                extra.update({f"iter1_{f}": np.asarray(y)
+                              for f, y in x._asdict().items()})
+            else:
+                extra[f"iter1_{k}"] = np.asarray(x)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(
+        out, xts0=xts, min_distance_m=np.asarray(min_dist), **rec, **extra,
+        profile=np.asarray(json.dumps(dict(b, lanes=s, dtype=str(
+            np.dtype(dtype))), sort_keys=True)),
+        commit=np.asarray(commit))
+    capped = int((~rec["converged"]).sum())
+    print(json.dumps(dict(
+        out=os.path.relpath(out, ROOT), profile=name, lanes=s,
+        seconds=round(secs, 1), iterations=rec["iterations"].tolist()
+        if s <= 4 else rec["iterations"].sum(axis=1).tolist(),
+        converged_fraction=1.0 - capped / rec["converged"].size,
+        capped=capped, min_distance_m=min_dist, commit=commit)))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", choices=sorted(PROFILES), default="f64")
+    ap.add_argument("--profile", choices=sorted(PROFILES) + sorted(
+        PI_ADMM_LANES), default="f64")
     ap.add_argument("--steps", type=int, default=None,
                     help="MPC steps (default: the whole 42-step run)")
     ap.add_argument("--out", default=None,
@@ -149,11 +291,15 @@ def main():
     args = ap.parse_args()
     if not args.noise:
         args.out = args.out or default_out(args.profile)
-    jax.config.update("jax_enable_x64", args.profile != "f32")
+    jax.config.update("jax_enable_x64",
+                      args.profile not in ("f32", "pi_admm_f32"))
     commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
                             capture_output=True, text=True).stdout.strip()
     if args.profile == "v4":
         return write_v4(args.out, commit)
+    if args.profile in PI_ADMM_LANES:
+        return write_pi_admm(args.profile, args.out, commit, args.noise,
+                             args.seed)
     t0 = time.perf_counter()
     planner = make_planner(args.profile)
     if args.noise:

@@ -57,7 +57,29 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    pairwise distance > 1.0 m, converged fraction >= 0.93) with the JAX
    float32 run ``tests/data/pi_admm_bench_f32_ref.npz`` printed beside it;
    a second call and a call with a chunk of one trip give the same bits in
-   every record; no block-Thomas kernel is launched on this path.
+   every record; no block-Thomas kernel is launched on this path;
+10. the scenario-batched driver of ``bench.py``'s third metric,
+   ``dlp_admm_torch.parallel.consensus_spmd.run_scenario_batch`` at its
+   full width (16 perturbed overtaking scenarios x 2 vehicles, the
+   flagship's float64 profile): over the committed JAX run's steps
+   (``tests/data/consensus_obca_batch_f64_ref.npz``, 6 of the bench's 20)
+   equal ADMM iterations per lane and states within 1e-6 up to the
+   (lane, step) where JAX itself, its starts moved by 1e-12, leaves itself
+   (the rest printed); lane 0 also against the single-scenario fixture;
+   the slowest lane run alone through the same driver (S = 1, its wall per
+   ADMM iteration beside the batch's) against its lane in the batch;
+   the block-Thomas launches equal to the block solves, at (32, 7, 19) for
+   the locals and (16, 7, 20) for the edges; the float32 profile over 2
+   steps on ``bench.py:266``'s gates (finite states, minimum centre distance
+   > 3.0 m, at least 85 % of the lane-steps under the 0.01 residuals); one
+   batched step of 2 lanes with dense locals and the joint edge
+   (``tests/data/consensus_spmd_cases_ref.npz``'s first case) on the card
+   against the same step on the CPU (and JAX's printed beside). The
+   kernels are timed at the batch's shapes in 3 and 7.
+   ``--full-batch``: the bench's 16 x 20 run in both profiles, the float64
+   one gated on ``bench.py:266``, the float32 one reported; wall,
+   lane-iterations/s, executed ADMM iterations (the slowest lane's, summed
+   over steps) and loop efficiency printed beside the single-scenario run.
 
 Every path is driven with the launch counts set to 0 just before and read
 just after. Prints, before the last line, one JSON object with the kernels'
@@ -65,7 +87,7 @@ numbers and the ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0) and
 prints no result.
 
-Usage: python3 chip_smoke.py [--full] [--out PATH.json]
+Usage: python3 chip_smoke.py [--full] [--full-batch] [--out PATH.json]
 """
 import argparse
 import json
@@ -84,7 +106,11 @@ FIXTURE_F32 = os.path.join(DATA, "consensus_obca_f32_ref.npz")
 FIXTURE_V4 = os.path.join(DATA, "consensus_obca_v4_f64_ref.npz")
 FIXTURE_PI = os.path.join(DATA, "pi_admm_bench_f64_ref.npz")
 FIXTURE_PI_F32 = os.path.join(DATA, "pi_admm_bench_f32_ref.npz")
+FIXTURE_BATCH = os.path.join(DATA, "consensus_obca_batch_f64_ref.npz")
+FIXTURE_CASES = os.path.join(DATA, "consensus_spmd_cases_ref.npz")
 SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (256, 7, 19))   # B <= 32
+# the batched driver's edge solves (its locals are (32, 7, 19) above)
+BATCH_SHAPES = ((16, 7, 20),)
 # B > 32: the 4-vehicle local and edge widths 33 and 80, the 3-vehicle edge
 # width 45 (at 43), the 8-vehicle local width 61, and 97, the float64 bound
 # (float64 equilibrated, 80 is the bound and a width the earlier wide
@@ -129,6 +155,17 @@ PI_CHAOTIC_FROM = (4, 2)
 # bench.py:32-33, the gates of its first metric
 PI_MIN_DIST_GATE = 1.0
 PI_CONV_FRAC_GATE = 0.93
+# bench.py:239-283, its third metric: 16 scenarios x 20 MPC steps, the
+# gates of :266 (minimum centre distance, share of lane-steps under the
+# 0.01 residuals) and the float32 steps the default run takes
+BATCH_STEPS = 20
+BATCH_MIN_DIST_GATE = 3.0
+BATCH_RES_OK_SHARE = 0.85
+BATCH_F32_SMOKE_STEPS = 2
+# the JAX package's record of that run (BENCH_r05.json, float32 on its
+# accelerator): quality only
+JAX_BATCH_QUALITY = dict(res_ok="288/320", min_distance_m=3.53,
+                         gap_median=0.00844)
 DEVICE = "cuda"
 # NVIDIA H100 SXM data sheet: HBM3 rate and the vector (non-tensor-core)
 # peaks; FP64 vector is half the FP32 rate
@@ -650,9 +687,13 @@ def main():
     ap = argparse.ArgumentParser(description="PyTorch port smoke run on CUDA")
     ap.add_argument("--full", action="store_true",
                     help="also run all 42 MPC steps of both profiles")
+    ap.add_argument("--full-batch", action="store_true",
+                    help="also run bench.py's 16 x 20 scenario batch in "
+                         "both profiles")
     ap.add_argument("--out", default=None,
                     help="write every record of this run to this JSON file")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     records = {}
 
     # -- 1. device ------------------------------------------------------
@@ -694,7 +735,7 @@ def main():
     rng = np.random.default_rng(0)
     synth = []
     for dtype in (torch.float64, torch.float32):
-        for s, t, b in SHAPES + WIDE_SHAPES:
+        for s, t, b in SHAPES + WIDE_SHAPES + BATCH_SHAPES:
             for kind_, eq in VARIANTS:
                 d, u, r = (torch.as_tensor(a, dtype=dtype, device=dev)
                            for a in make_system(rng, s, t, b, kind_))
@@ -744,6 +785,10 @@ def main():
                                    ref_v4)
     paths[name] = records[name]["launches"]
 
+    # -- 10. the scenario-batched driver (bench.py's third metric) -----
+    records["batch"] = batch_path(thomas, ip_staged, paths, systems, refs,
+                                  records["slice float64"], smi)
+
     # -- 7. the kernels on the KKT blocks those runs gave them ----------
     real = []
     for name, kkt in systems.items():
@@ -760,6 +805,7 @@ def main():
     records["pi_admm"] = pi_admm_path(thomas, paths, smi)
 
     # -- 8. --full ------------------------------------------------------
+    failures = []
     if args.full:
         records["full"] = {}
         for dtype in (torch.float64, torch.float32):
@@ -775,19 +821,306 @@ def main():
         failed = {name: [g for g, ok in rec["gates"].items() if not ok]
                   for name, rec in records["full"].items()}
         if any(failed.values()):
-            raise RuntimeError(f"--full gates failed: {failed}")
+            failures.append(f"--full gates failed: {failed}")
+
+    if args.full_batch:
+        records["full_batch"] = full_batch(thomas, ip_staged, records, smi,
+                                           args.out)
+        gates = records["full_batch"]["float64"]["gates"]
+        if not all(gates.values()):
+            failures.append(f"--full-batch float64 fails bench.py's gates: "
+                            f"{gates}")
+    if failures:
+        dump(args.out, records)
+        raise RuntimeError("; ".join(failures))
 
     kernels = {"kernels": [
         kernel_entry("warp", real, paths, "slice float64", (2, 7, 19)),
         kernel_entry("wide", real, paths, "multi-vehicle V=4 float64",
                      (1, 7, 80))]}
-    records.update(kernels, paths=paths, device=kind, nvidia_smi=smi)
+    wall = time.perf_counter() - t_start
+    records.update(kernels, paths=paths, device=kind, nvidia_smi=smi,
+                   wall_s=wall)
     dump(args.out, records)
+    log(f"chip_smoke.py wall (build included): {wall:.1f} s")
     log(json.dumps(kernels))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def batch_starts(init0, prof):
+    """bench.py:249-255: ``init0 [2, 5]`` plus normal jitter of
+    ``prof["jitter"]`` m (``default_rng(prof["seed"])``) on every lane's
+    positions but lane 0's, ``[n_scen, 2, 5]``."""
+    n = prof["n_scen"]
+    inits = np.broadcast_to(init0, (n,) + init0.shape).copy()
+    pert = prof["jitter"] * np.random.default_rng(prof["seed"]).normal(
+        size=(n, 2, 2))
+    pert[0] = 0.0
+    inits[:, :, :2] += pert
+    return inits
+
+
+def batch_run(thomas, ip_staged, dtype, n_steps, prof):
+    """``run_scenario_batch`` of bench.py's third metric on the card, driven
+    with the launch counts set to 0 just before; returns the planner, the
+    starts, the host arrays, the wall seconds, the counts and the first KKT
+    system of each shape."""
+    from dlp_admm_torch.models.obca import ConsensusObcaPlanner
+    from dlp_admm_torch.parallel.consensus_spmd import run_scenario_batch
+    pl = ConsensusObcaPlanner(**flagship_profile(dtype), device=DEVICE)
+    inits = batch_starts(pl.refs[:, 0].double().cpu().numpy(), prof)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_scenario_batch(pl, inits, n_steps)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    (res, wall), counts, kkt = drive(thomas, ip_staged, run)
+    log(f"batch {str(dtype)[6:]}, {n_steps} steps: device memory reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB, peak "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB")
+    return pl, inits, res, wall, counts, kkt
+
+
+def batch_numbers(res, wall, smi):
+    """bench.py's numbers of a batch run (``:262-283``) and the loop's:
+    executed ADMM iterations (the slowest lane's, summed over steps) and
+    loop efficiency (lane total / (executed x lanes))."""
+    states, its, prs, dus, _, gaps = res
+    p = states[..., :2]
+    n_lanes, n_steps = its.shape
+    res_ok = int(((prs <= 0.01) & (dus <= 0.01)).sum())
+    executed = int(its.max(axis=0).sum())
+    out = dict(
+        lanes=n_lanes, steps=n_steps, wall_s=wall,
+        wall_per_step_s=wall / n_steps,
+        lane_iterations=int(its.sum()),
+        lane_iterations_per_s=float(its.sum()) / wall,
+        executed_admm_iterations=executed,
+        wall_per_executed_iteration_s=wall / executed,
+        loop_efficiency=float(its.sum()) / (executed * n_lanes),
+        res_ok=res_ok, res_ok_needed=int(np.ceil(BATCH_RES_OK_SHARE
+                                                 * its.size)),
+        min_distance_m=float(np.linalg.norm(p[:, :, 0] - p[:, :, 1],
+                                            axis=-1).min()),
+        gap_median=float(np.median(gaps)), gap_max=float(gaps.max()),
+        finite=bool(np.all(np.isfinite(states))), nvidia_smi=smi)
+    out["gates"] = {
+        "finite states": out["finite"],
+        f"min distance > {BATCH_MIN_DIST_GATE} m":
+            out["min_distance_m"] > BATCH_MIN_DIST_GATE,
+        f"res_ok >= {BATCH_RES_OK_SHARE:.0%} of lane-steps":
+            res_ok >= BATCH_RES_OK_SHARE * its.size}
+    return out
+
+
+def batch_path(thomas, ip_staged, paths, systems, refs, single, smi):
+    """Phase 10: the scenario batch at bench width on the card, float64
+    against the JAX fixture, float32 on the bench's gates, and a dense /
+    joint batched step against the CPU."""
+    out = {}
+    ref = np.load(FIXTURE_BATCH)
+    prof = json.loads(str(ref["profile"]))
+    n = prof["steps"]
+    # -- 10.1 float64 against the JAX run ---------------------------------
+    name = "batch float64"
+    pl, inits, res, wall, counts, kkt = batch_run(
+        thomas, ip_staged, torch.float64, n, prof)
+    if not np.array_equal(inits, ref["states"][0]):
+        raise RuntimeError(f"{name}: the starts are not the fixture's")
+    check_counts(name, counts, pl.block_solves, ("warp",))
+    shapes = sorted(kkt)
+    log(f"{name}: KKT shapes {shapes}")
+    want = sorted([(2 * prof["n_scen"], 7, 19), (prof["n_scen"], 7, 20)])
+    if shapes != want:
+        raise RuntimeError(f"{name}: KKT shapes {shapes}, expected the "
+                           f"locals' and the edges' {want}")
+    systems[name] = kkt
+    paths[name] = counts
+    states, its = res[0], res[1]
+    err = np.abs(states[1:] - ref["states"][1:]).max(axis=(2, 3)).T
+    chaotic = ref["chaotic_from"]
+    lanes = []
+    for lane in range(its.shape[0]):
+        strict = int(chaotic[lane])
+        row = dict(lane=lane, iterations=its[lane].tolist(),
+                   jax_iterations=ref["iterations"][lane].tolist(),
+                   max_state_err_per_step=err[lane].tolist(),
+                   strict_steps=strict)
+        log(f"{name} vs JAX: " + json.dumps(row))
+        lanes.append(row)
+        if not np.array_equal(its[lane, :strict],
+                              ref["iterations"][lane, :strict]):
+            raise RuntimeError(f"{name} lane {lane}: iterations differ from "
+                               f"JAX before step {strict}")
+        if strict and not err[lane, :strict].max() <= STATE_TOL:
+            raise RuntimeError(f"{name} lane {lane}: states "
+                               f"{err[lane, :strict].max():.3e} from JAX "
+                               f"before step {strict}")
+    one = refs[torch.float64]
+    strict = int(chaotic[0])
+    lane0 = float(np.abs(states[:strict + 1, 0]
+                         - one["states"][:strict + 1]).max())
+    log(f"{name}: lane 0 vs the single-scenario fixture {lane0:.3e} over "
+        f"{strict} steps, iterations {its[0].tolist()} against "
+        f"{one['iterations'][:n].tolist()}")
+    if not (lane0 <= STATE_TOL and np.array_equal(
+            its[0, :strict], one["iterations"][:strict])):
+        raise RuntimeError(f"{name}: lane 0 differs from the single-scenario "
+                           f"fixture")
+    nums = batch_numbers(res, wall, smi)
+    slice_s = single["summary"]
+    nums.update(
+        lane0_vs_single_fixture=lane0, lanes_vs_jax=lanes,
+        launches=counts, block_solves=pl.block_solves, kkt_shapes=shapes,
+        single_scenario=dict(
+            path="slice float64", wall_per_admm_iteration_s=slice_s[
+                "total_time_s"] / max(1, sum(
+                    r["iterations"] for r in single["steps"])),
+            iterations_per_s=slice_s.get("iterations_per_s")))
+    log(f"{name}: " + json.dumps({k: v for k, v in nums.items()
+                                  if k != "lanes_vs_jax"}))
+    out["float64"] = nums
+    out["one_lane"] = one_lane(thomas, ip_staged, pl, inits, res, nums)
+    # -- 10.2 float32, bench.py's gates over its first steps --------------
+    name = "batch float32"
+    pl, _, res, wall, counts, kkt = batch_run(
+        thomas, ip_staged, torch.float32, BATCH_F32_SMOKE_STEPS, prof)
+    check_counts(name, counts, pl.block_solves, ("warp",))
+    systems[name] = kkt
+    paths[name] = counts
+    nums = batch_numbers(res, wall, smi)
+    nums.update(launches=counts, block_solves=pl.block_solves,
+                kkt_shapes=sorted(kkt), iterations=res[1].tolist())
+    log(f"{name}: " + json.dumps(nums))
+    if not all(nums["gates"].values()):
+        raise RuntimeError(f"{name} fails bench.py's gates: {nums['gates']}")
+    out["float32"] = nums
+    out["dense_joint_step"] = dense_joint_step(thomas, paths)
+    return out
+
+
+def one_lane(thomas, ip_staged, pl, inits, res, nums):
+    """S = 1 beside S = 16: the batch's slowest lane (the most ADMM
+    iterations over the run, as many as the batch executed) run alone
+    through the same driver; equal iterations and states within 1e-6 of
+    its lane in the batch (the distance printed), and its wall per ADMM
+    iteration beside the batch's wall per executed iteration."""
+    from dlp_admm_torch.parallel.consensus_spmd import run_scenario_batch
+    its = res[1]
+    lane = int(its.sum(axis=1).argmax())
+    n = its.shape[1]
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alone = run_scenario_batch(pl, inits[lane:lane + 1], n)
+        torch.cuda.synchronize()
+        return alone, time.perf_counter() - t0
+
+    (alone, wall), counts, _ = drive(thomas, ip_staged, run)
+    err = float(np.abs(alone[0][:, 0] - res[0][:, lane]).max())
+    row = dict(lane=lane, iterations=alone[1][0].tolist(),
+               batch_iterations=its[lane].tolist(), wall_s=wall,
+               admm_iterations=int(alone[1].sum()),
+               wall_per_admm_iteration_s=wall / max(1, int(alone[1].sum())),
+               batch_wall_per_executed_iteration_s=nums[
+                   "wall_per_executed_iteration_s"],
+               max_state_err_vs_batch_lane=err, launches=counts)
+    log("batch float64, one lane alone: " + json.dumps(row))
+    if not (np.array_equal(alone[1][0], its[lane]) and err <= STATE_TOL):
+        raise RuntimeError(f"lane {lane} alone differs from its lane in the "
+                           f"batch: {row}")
+    return row
+
+
+def dense_joint_step(thomas, paths):
+    """One batched step of 2 lanes with dense local NLPs and the joint edge
+    (the first case of ``tests/test_consensus_spmd.py``) on the card, held
+    against the same step on the CPU: equal iterations and flags, states and
+    ``z_bar`` within 1e-8; JAX's outputs printed beside."""
+    from dlp_admm_torch.config import ObcaConfig, SolverConfig
+    from dlp_admm_torch.interop import bar_state_from_numpy
+    from dlp_admm_torch.models.obca import BarState, ConsensusObcaPlanner
+    from dlp_admm_torch.parallel.consensus_spmd import (
+        make_consensus_spmd_step)
+    ref = np.load(FIXTURE_CASES)
+    name = "two_vehicle_reference_problem"
+    case = json.loads(str(ref["profile"]))[name]
+    lanes = 2
+    init = ref[f"{name}__init"][:lanes]
+    bs = {f: ref[f"{name}__bs_{f}"][:lanes] for f in BarState._fields}
+    outs, walls = {}, {}
+    for dev in (DEVICE, "cpu"):
+        pl = ConsensusObcaPlanner(
+            ObcaConfig(num_veh=case["num_veh"], horizon=case["horizon"],
+                       max_admm_iters=2, rho=100.0),
+            scfg=SolverConfig(ip_iters=5, ip_tol=1e-6), use_staged=False,
+            edge_mode="joint", device=dev)
+        step = make_consensus_spmd_step(pl)
+        thomas.reset_counts()
+        t0 = time.perf_counter()
+        o = step(torch.as_tensor(init, device=dev),
+                 bar_state_from_numpy(bs, device=dev), 0)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            paths["batch dense/joint step"] = dict(thomas.launches_by_kernel)
+        walls[dev] = time.perf_counter() - t0
+        outs[dev] = [o[0].cpu().numpy(), o[1].z_bar.cpu().numpy(),
+                     o[2].cpu().numpy(), o[5].cpu().numpy()]
+    card, cpu = outs[DEVICE], outs["cpu"]
+    row = dict(
+        lanes=lanes, iterations=card[2].tolist(),
+        cpu_iterations=cpu[2].tolist(),
+        max_state_err_vs_cpu=float(np.abs(card[0] - cpu[0]).max()),
+        max_z_bar_err_vs_cpu=float(np.abs(card[1] - cpu[1]).max()),
+        max_state_err_vs_jax=float(np.abs(
+            card[0] - ref[f"{name}__out_0"][:lanes]).max()),
+        wall_s=walls[DEVICE], cpu_wall_s=walls["cpu"],
+        launches=paths["batch dense/joint step"])
+    log("batch dense/joint step, card vs CPU: " + json.dumps(row))
+    if not (np.array_equal(card[2], cpu[2]) and np.array_equal(card[3], cpu[3])
+            and row["max_state_err_vs_cpu"] <= 1e-8
+            and row["max_z_bar_err_vs_cpu"] <= 1e-8):
+        raise RuntimeError(f"the dense/joint batched step on the card differs "
+                           f"from the CPU: {row}")
+    return row
+
+
+def full_batch(thomas, ip_staged, records, smi, out_path):
+    """``--full-batch``: bench.py's 16 x 20 scenario batch in both profiles,
+    with bench.py:266's gates evaluated (the caller fails the run on the
+    float64 ones; the float32 ones are reported) and the single-scenario
+    numbers of the same card beside them: the 42-step runs of ``--full``
+    where it ran, else the 6-step slices, and phase 10's lane run alone."""
+    prof = json.loads(str(np.load(FIXTURE_BATCH)["profile"]))
+    full = records.get("full", {})
+    single = {dt: dict(iterations_per_s=r["summary"].get("iterations_per_s"),
+                       wall_s=r["summary"].get("total_time_s"))
+              for dt, r in full.items()}
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        name = f"full batch {str(dtype)[6:]}"
+        pl, _, res, wall, counts, _ = batch_run(thomas, ip_staged, dtype,
+                                                BATCH_STEPS, prof)
+        check_counts(name, counts, pl.block_solves, ("warp",))
+        nums = batch_numbers(res, wall, smi)
+        nums.update(launches=counts, block_solves=pl.block_solves,
+                    iterations=res[1].tolist(),
+                    jax_quality=JAX_BATCH_QUALITY,
+                    single_scenario_same_card=single.get(str(dtype)[6:])
+                    or records["slice " + str(dtype)[6:]]["summary"],
+                    one_lane_alone=records["batch"]["one_lane"])
+        log(f"{name}: " + json.dumps(nums))
+        out[str(dtype)[6:]] = nums
+        records["full_batch"] = out
+        dump(out_path, records)        # kept for diagnosis if a gate fails
+    return out
 
 
 def bench_engine(prof, dtype):

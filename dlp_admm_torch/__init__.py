@@ -2,13 +2,17 @@
 
 The JAX package ``dlp_admm_tpu`` is the reference; this package mirrors its
 module names (``config``, ``scenarios``, ``ops``, ``coordination``,
-``solvers``, ``models``, ``utils``, ``mpc``) and imports ``torch``, never
-``jax``. So far it carries the consensus-OBCA flagship
+``solvers``, ``models``, ``utils``, ``mpc``, ``parallel``) and imports
+``torch``, never ``jax``. So far it carries the consensus-OBCA flagship
 (``models.obca.ConsensusObcaPlanner``, ``mpc.run_obca(Formulation.CONSENSUS)``)
-in float64 and float32, with the block-tridiagonal KKT solve of the staged
-interior-point solver as hand-written CUDA kernels
-(``csrc/block_thomas_warp.cu``, ``csrc/block_thomas_wide.cu``). Its entry
-points run on the CUDA card unless the caller names another device.
+in float64 and float32 with the planner modes of its staged and dense
+interior-point solvers (``solvers.ip_staged``, ``solvers.ip``), its
+scenario-batched driver on one device
+(``parallel.consensus_spmd.run_scenario_batch``), and the PI-ADMM pairwise
+engine (``models.pi_admm``). The block-tridiagonal KKT solve of the staged
+solver is hand-written CUDA (``csrc/block_thomas_warp.cu``,
+``csrc/block_thomas_wide.cu``). Its entry points run on the CUDA card
+unless the caller names another device.
 
 Importing the package turns TF32 off for float32 matmuls and convolutions,
 the counterpart of ``dlp_admm_tpu/__init__.py`` forcing full-float32 matmul

@@ -6,10 +6,14 @@ per-vehicle NLPs over (X_i, U_i, lambda, elastic slacks) with augmented-
 Lagrangian coupling to an edge/RSU consensus NLP over Z = (states, lambda),
 and dual ascent (+ saturation) on lambda_bar.
 
-Both NLP families are solved by the staged interior-point solver
-(:mod:`..solvers.ip_staged`): the V local NLPs as one batch of V lanes, the
-edge NLP as one lane whose stages are the horizon steps. Every KKT solve of
-either goes through the block-Thomas CUDA kernel on a CUDA device.
+By default both NLP families are solved by the staged interior-point
+solver (:mod:`..solvers.ip_staged`): the V local NLPs as one batch of V
+lanes, the edge NLP as one lane whose stages are the horizon steps. Every
+KKT solve of either goes through the block-Thomas CUDA kernel on a CUDA
+device. ``use_staged=False`` solves the locals as dense NLPs and
+``edge_mode="joint"`` / ``"per_step"`` the edge as one dense NLP or one per
+horizon step, all with the dense solver (:mod:`..solvers.ip`), whose KKT
+solves are ``torch.linalg``'s, as they are XLA's in JAX.
 
 The JAX version runs the ADMM loop as a ``lax.while_loop`` on the device;
 here it is a Python loop whose one host read per iteration is the ``done``
@@ -20,9 +24,11 @@ blocks (paper eq. (4)/(5)/(6)):
     (4b)  A_i(x_i)^T l_i + A_j(x_j)^T l_j  = 0
     (4c)  ||A_i(x_i)^T l_i||^2 <= 1,  l >= 0
 
-Only the flagship's configuration surface is ported so far (staged locals
-and staged edge); the other options raise ``NotImplementedError`` naming the
-ROADMAP item that holds them.
+``branch_commit``, ``edge_prox != 0``, ``mpc_step_trace`` and
+checkpoint/resume are not ported yet and raise ``NotImplementedError``
+naming the ROADMAP item that holds them. The scenario-batched step of
+:mod:`..parallel.consensus_spmd` builds its parameters with this
+planner's methods.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from ..coordination.dual_update import DualState, update_dual
 from ..ops.dynamics import bicycle_rhs
 from ..ops.geometry import halfspaces
 from ..ops.pairs import pair_indices
+from ..solvers.ip import NLP, solve_nlp_batch
 from ..solvers.ip_staged import StagedNLP, solve_staged
 
 _TODO_OPTIONS = "ROADMAP.md queue 1, item 'ConsensusObcaPlanner options'"
@@ -68,6 +75,16 @@ def _box_bounds(ocfg: ObcaConfig, vcfg: VehicleConfig, **kw):
                          vcfg.max_front_wheel_angle], **kw)
     hi_u = torch.tensor([vcfg.max_acc, vcfg.max_steer_rate], **kw)
     return lo_x, hi_x, hi_u
+
+
+def _dyn_residual(x_states, u_ctrls, init_state, cfg: VehicleConfig):
+    """Init + Euler dynamics equality residuals of one vehicle,
+    ``x_states [N, 5]``, ``u_ctrls [N-1, 2]`` (ref
+    ``decentralized/optimizer.py:84-100``, vectorized over the horizon)."""
+    r0 = x_states[0] - init_state
+    f = bicycle_rhs(x_states[:-1], u_ctrls, cfg)
+    r_dyn = x_states[1:] - (x_states[:-1] + cfg.dt * f)
+    return torch.cat([r0, r_dyn.reshape(-1)])
 
 
 def _box_residuals(x_states, u_ctrls, bounds):
@@ -144,11 +161,7 @@ class ConsensusObcaPlanner:
         if edge_mode not in ("joint", "per_step", "staged"):
             raise ValueError(f"unknown edge_mode {edge_mode!r}")
         for name, unported in (
-                ("use_staged=False", not use_staged),
-                (f"edge_mode={edge_mode!r}", edge_mode != "staged"),
                 ("branch_commit", branch_commit),
-                ("prox_adaptive", prox_adaptive),
-                ("lamb_ij_hysteresis", lamb_ij_hysteresis),
                 ("edge_prox != 0", edge_prox != 0.0)):
             if unported:
                 raise NotImplementedError(
@@ -158,6 +171,8 @@ class ConsensusObcaPlanner:
         self.ocfg, self.vcfg, self.scfg = ocfg, vcfg, scfg
         self.lamb_ij_mode = lamb_ij_mode
         self.local_warm_mode = local_warm_mode
+        self.use_staged = bool(use_staged)
+        self.edge_mode = edge_mode
         # plain ascent + saturation on lamb_bar (see the JAX constructor)
         self.dual_cfg = dual_cfg if dual_cfg is not None else DualUpdateConfig(
             strategy=DualStrategy.PLAIN, windup=WindupMode.SAT,
@@ -199,18 +214,27 @@ class ConsensusObcaPlanner:
                                e=self.K * (n - 1))
         self.lamb_bar_decay = float(lamb_bar_decay)
         self.lamb_ij_relax = float(lamb_ij_relax)
+        # freeze the certificate exchange on iterations where the primal
+        # residual rose (the limit-cycle breaker of the JAX planner)
+        self.lamb_ij_hysteresis = bool(lamb_ij_hysteresis)
         self.local_prox = float(local_prox)
         self.prox_after = int(prox_after)
         self.prox_growth = float(prox_growth)
         self.prox_tau_max = float(prox_tau_max)
+        # adaptive ratchet: hold tau while the primal residual falls, grow
+        # it by prox_growth when it rises (instead of the scheduled anneal)
+        self.prox_adaptive = bool(prox_adaptive)
+        self._local_nlp = NLP(self._local_obj, self._local_ce, self._local_ci)
+        self._edge_nlp = NLP(self._edge_obj, self._edge_ce, self._edge_ci)
+        self._edge_nlp_t = NLP(self._edge_obj_t, self._edge_ce_t,
+                               self._edge_ci_t)
         self._local_staged = StagedNLP(self._loc_stage_f,
                                        self._loc_stage_ce_link,
                                        self._loc_stage_ce,
                                        self._loc_stage_ci)
-        self._edge_staged = StagedNLP(self._edge_stage_f,
+        self._edge_staged = StagedNLP(self._edge_obj_t,
                                       self._edge_stage_ce_link,
-                                      self._edge_stage_ce,
-                                      self._edge_stage_ci)
+                                      self._edge_ce_t, self._edge_ci_t)
         # block-Thomas solves made by this planner's staged solves (each
         # solve covers all lanes of one NLP family at once)
         self.block_solves = 0
@@ -238,6 +262,59 @@ class ConsensusObcaPlanner:
         lam = x[..., o2:o3].reshape(lead + (self.K, n - 1, 4))
         e = x[..., o3:].reshape(lead + (self.K, n - 1))
         return xs, us, lam, e
+
+    # dense local form (use_staged=False): one vehicle's x [nx], p its slice
+    # of _local_params
+
+    def _s_full(self, xs, lam):
+        """Consensus row S = (X_t, lambda blocks) per step: [N-1, F]."""
+        n = self.ocfg.horizon
+        lam_flat = lam.movedim(0, 1).reshape(n - 1, 4 * self.K)
+        return torch.cat([xs[1:], lam_flat], dim=-1)
+
+    def _local_obj(self, x, p):
+        """Tracking + effort + AL (ref ``local_generate_object``
+        ``optimizer.py:150-168``): obj += lamb_bar^T S + rho/2 ||S - Z||^2
+        with S = (X_t, lambda_t)."""
+        xs, us, lam, e = self._loc_split(x)
+        err = xs[1:] - p["ref_win"][1:]
+        obj = (self.ocfg.r_ctrl * torch.sum(us ** 2)
+               + self.ocfg.q_state * torch.sum(err ** 2))
+        s_full = self._s_full(xs, lam)                         # [N-1, F]
+        obj = obj + torch.sum(p["lamb_bar"] * s_full)
+        obj = obj + p["rho"] / 2 * torch.sum((s_full - p["z_bar"]) ** 2)
+        obj = obj + self.elastic_w * torch.sum(e)
+        if self.local_prox:
+            obj = obj + p["prox_tau"] / 2 * torch.sum((x - p["x_prev"]) ** 2)
+        return obj
+
+    def _local_ce(self, x, p):
+        """Init + dynamics + (5b) pairing equalities per neighbour slot
+        (ref ``local_generate_constrain`` ``optimizer.py:84-124``)."""
+        xs, us, lam, _ = self._loc_split(x)
+        dyn = _dyn_residual(xs, us, p["init_state"], self.vcfg)
+        a_self, _ = halfspaces(xs[1:], self.vcfg,
+                               self.ocfg.use_delay_tightening)
+        at_l = torch.einsum('tij,kti->ktj', a_self, lam)        # [K, N-1, 2]
+        other = torch.einsum('ktij,kti->ktj', p["other_a"], p["other_lij"])
+        pairing = p["mask"][:, None, None] * (at_l + other)
+        return torch.cat([dyn, pairing.reshape(-1)])
+
+    def _local_ci(self, x, p):
+        """(5a) separation (elastic) per slot, (4c) dual norm, lambda >= 0,
+        e >= 0, boxes. Masked-out slots get trivially satisfied rows."""
+        xs, us, lam, e = self._loc_split(x)
+        a_self, b_self = halfspaces(xs[1:], self.vcfg,
+                                    self.ocfg.use_delay_tightening)
+        sep = (-torch.einsum('ti,kti->kt', b_self, lam)
+               - torch.einsum('kti,kti->kt', p["other_b"], p["other_lij"])
+               - self.ocfg.min_dis + e)
+        sep = p["mask"][:, None] * sep + (1.0 - p["mask"][:, None])
+        at_l = torch.einsum('tij,kti->ktj', a_self, lam)
+        nrm = 1.0 - torch.sum(at_l ** 2, dim=-1)                # [K, N-1]
+        boxes = _box_residuals(xs, us, self._box)
+        return torch.cat([sep.reshape(-1), nrm.reshape(-1),
+                          lam.reshape(-1), e.reshape(-1), boxes])
 
     # staged local form: stage k = 0..N-2 holds w_k = [x_{k+1} (5) | u_k (2)
     # | lam[:, k, :] (4K) | e[:, k] (K)]; dynamics are the only coupling rows
@@ -354,7 +431,30 @@ class ConsensusObcaPlanner:
         e_warm = torch.clamp(-sep, min=0.0) + 0.01
         return torch.cat([x0[:, :-s["e"]], e_warm.reshape(v, -1)], dim=-1)
 
-    # -- edge problem (ref optimizer.py:239-328), staged per horizon step --
+    def _local_params(self, bs: BarState, init_state, ref_win, rho, mask_veh):
+        """Per-vehicle parameters ``[V, ...]`` of the dense local NLPs (and
+        of :meth:`_local_warm_one`): the JAX ``_local_params``."""
+        other_a, other_b, other_lij = self._neighbour_data(bs)
+        return dict(init_state=init_state, ref_win=ref_win, other_a=other_a,
+                    other_b=other_b, other_lij=other_lij, z_bar=bs.z_bar,
+                    lamb_bar=bs.lamb_bar, mask=mask_veh,
+                    rho=rho.expand(self.num_veh))
+
+    def _local_warm_one(self, ref_i, p_i):
+        """One vehicle's reference warm start ``[nx]`` from its slice of
+        :meth:`_local_params`, as the JAX ``_local_warm_one`` builds it:
+        the slacks from the separation rows of :meth:`_local_ci`. The same
+        point as :meth:`_local_warm`; the batched step maps this one over
+        its lanes, as the JAX batched step does."""
+        s = self._loc_sizes
+        kw = dict(dtype=self.dtype, device=self.device)
+        x0 = torch.cat([ref_i.reshape(-1), torch.zeros((s["u"],), **kw),
+                        torch.ones((s["lam"],), **kw),
+                        torch.zeros((s["e"],), **kw)])
+        sep = self._local_ci(x0, p_i)[:s["e"]]
+        return torch.cat([x0[:-s["e"]], torch.clamp(-sep, min=0.0) + 0.01])
+
+    # -- edge problem (ref optimizer.py:239-328) ---------------------------
 
     def _edge_lam(self, z):
         """Per-vehicle per-slot duals from the consensus row: [V, K, N-1, 4]."""
@@ -366,10 +466,56 @@ class ConsensusObcaPlanner:
         """[V, F] one-step consensus row -> [V, K, 4] duals."""
         return z[:, 5:].reshape(self.num_veh, self.K, 4)
 
-    # staged edge: stage = horizon step, NO link rows (the edge problem is
-    # temporally separable) — block-diagonal KKT, one shared line search
+    # joint edge (edge_mode="joint"): one NLP over Z [V, N-1, F] flattened
 
-    def _edge_stage_f(self, w, pk):
+    def _edge_split(self, x):
+        return x.reshape(self.num_veh, self.ocfg.horizon - 1, self.N_FULL)
+
+    def _edge_obj(self, x, p):
+        """obj = -sum_i Z_i lamb_bar_i + rho/2 sum_i ||local_fullx_i - Z_i||^2
+        (ref ``edge_generate_object`` ``optimizer.py:297-307``)."""
+        z = self._edge_split(x)
+        return (-torch.sum(z * p["lamb_bar"])
+                + p["rho"] / 2 * torch.sum((p["local_fullx"] - z) ** 2))
+
+    def _edge_ce(self, x, p):
+        """(6b): A(z_i)^T l_i^(j) + A(z_j)^T l_j^(i) = 0 per unordered pair
+        (ref ``edge_generate_constrain`` ``optimizer.py:259-279``)."""
+        z = self._edge_split(x)
+        a_mat, _ = halfspaces(z[:, :, :5], self.vcfg,
+                              self.ocfg.use_delay_tightening)
+        at_l = torch.einsum('vtij,vkti->vktj', a_mat, self._edge_lam(z))
+        rows = (at_l[self.idx_i, self._slot_i]
+                + at_l[self.idx_j, self._slot_j])              # [P, N-1, 2]
+        return (p["pair_mask"][:, None, None] * rows).reshape(-1)
+
+    def _edge_ci(self, x, p):
+        """(6c) separation >= min_dis per pair (hard); (4c) dual-norm bound
+        at 0.95; z-state box; lambda >= 0."""
+        z = self._edge_split(x)
+        a_mat, b = halfspaces(z[:, :, :5], self.vcfg,
+                              self.ocfg.use_delay_tightening)
+        lam = self._edge_lam(z)
+        bl = torch.einsum('vti,vkti->vkt', b, lam)             # [V, K, N-1]
+        sep = (-bl[self.idx_i, self._slot_i]
+               - bl[self.idx_j, self._slot_j] - self.ocfg.min_dis)
+        sep = (p["pair_mask"][:, None] * sep
+               + (1.0 - p["pair_mask"][:, None]))
+        at_l = torch.einsum('vtij,vkti->vktj', a_mat, lam)
+        nrm = self.cert_norm_bound ** 2 - torch.sum(at_l ** 2, dim=-1)
+        zs = z[:, :, :5]
+        box = torch.cat([(zs + 1000.0).reshape(-1),
+                         (1000.0 - zs).reshape(-1)])
+        return torch.cat([sep.reshape(-1), nrm.reshape(-1),
+                          z[:, :, 5:].reshape(-1), box])
+
+    # per-step edge: one horizon step's Z [V, F] flattened. The edge problem
+    # has no temporal coupling, so edge_mode="per_step" solves these as
+    # independent dense NLPs and the default "staged" as the stages of one
+    # staged NLP with NO link rows (block-diagonal KKT, one shared line
+    # search)
+
+    def _edge_obj_t(self, w, pk):
         z = w.reshape(self.num_veh, self.N_FULL)
         return (-torch.sum(z * pk["lamb_bar"])
                 + pk["rho"] / 2 * torch.sum((pk["local_fullx"] - z) ** 2))
@@ -377,7 +523,7 @@ class ConsensusObcaPlanner:
     def _edge_stage_ce_link(self, w_prev, w, pk):
         return torch.zeros((0,), dtype=w.dtype, device=w.device)
 
-    def _edge_stage_ce(self, w, pk):
+    def _edge_ce_t(self, w, pk):
         z = w.reshape(self.num_veh, self.N_FULL)
         a_mat, _ = halfspaces(z[:, :5], self.vcfg,
                               self.ocfg.use_delay_tightening)
@@ -386,7 +532,7 @@ class ConsensusObcaPlanner:
                 + at_l[self.idx_j, self._slot_j])               # [P, 2]
         return (pk["pair_mask"][:, None] * rows).reshape(-1)
 
-    def _edge_stage_ci(self, w, pk):
+    def _edge_ci_t(self, w, pk):
         z = w.reshape(self.num_veh, self.N_FULL)
         a_mat, b = halfspaces(z[:, :5], self.vcfg,
                               self.ocfg.use_delay_tightening)
@@ -443,10 +589,13 @@ class ConsensusObcaPlanner:
                                        dtype=self.dtype, device=self.device),
             lamb_ij=lamb_ij, local_x=ref0)
 
-    def shift_bar_state(self, bs: BarState) -> BarState:
+    def shift_bar_state(self, bs: BarState, batch_dims: int = 0) -> BarState:
         """Horizon warm-start shift (ref ``iterate_next_state``
-        ``optimizer.py:337-344``): drop step 0, duplicate the tail."""
+        ``optimizer.py:337-344``): drop step 0, duplicate the tail.
+        ``batch_dims`` extra leading axes (the batched step's scenario lanes)
+        offset the shift axis."""
         def shift(a, axis):
+            axis += batch_dims
             return torch.cat([a.narrow(axis, 1, a.shape[axis] - 1),
                               a.narrow(axis, a.shape[axis] - 1, 1)], dim=axis)
         return BarState(
@@ -494,66 +643,121 @@ class ConsensusObcaPlanner:
             self.prox_growth, dtype=self.dtype) ** (it - self.prox_after)
         return min(float(grown), self.prox_tau_max)
 
-    def _local_solve(self, bs: BarState, init_state, ref_win, rho, x_prev,
-                     mask_veh, prox_tau: float):
-        v, t = self.num_veh, self.ocfg.horizon - 1
-        if self.local_warm_mode == "previous":
-            x0 = x_prev
-        else:
-            # reference semantics: re-initialize from the reference
-            # trajectory every iteration (local_initialize :50-55)
-            x0 = self._local_warm(ref_win, bs, mask_veh)
-        sp = self._local_staged_params(bs, init_state, ref_win, rho, mask_veh)
+    def _prox_taus(self) -> torch.Tensor:
+        """:meth:`_prox_tau` of every ADMM iteration ``[max_admm_iters]`` on
+        the planner's device: the batched step's lanes look their weight up
+        here, so each lane gets the single planner's value bit for bit."""
+        return torch.tensor([self._prox_tau(k)
+                             for k in range(self.ocfg.max_admm_iters)],
+                            dtype=self.dtype, device=self.device)
+
+    def _local_lane_params(self, bs: BarState, init_state, ref_win, rho,
+                           mask_veh):
+        """The local solves' parameters ``[V, ...]`` in the mode's form:
+        per (vehicle, stage) for the staged solver, per vehicle for the
+        dense one."""
+        build = (self._local_staged_params if self.use_staged
+                 else self._local_params)
+        return build(bs, init_state, ref_win, rho, mask_veh)
+
+    def _solve_locals(self, x0, x_prev, init_state, p, prox_tau):
+        """The local NLPs of L lanes (the vehicles of one scenario, or of
+        several) in one solve: ``x0``, ``x_prev [L, nx]``, ``init_state
+        [L, 5]``, ``p`` from :meth:`_local_lane_params` with L leading;
+        ``prox_tau`` a number or one weight per lane ``[L]``. Returns the
+        solutions ``[L, nx]`` and the solver's record."""
+        n_l, t = x0.shape[0], self.ocfg.horizon - 1
         if self.local_prox:
-            sp["w_prev"] = self._loc_to_staged(x_prev)
-            sp["prox_tau"] = torch.full((v, t), prox_tau, dtype=self.dtype,
-                                        device=self.device)
-        lsol = solve_staged(self._local_staged, self._loc_to_staged(x0), sp,
+            if torch.is_tensor(prox_tau):
+                tau = prox_tau[:, None].expand(n_l, t)
+            else:
+                tau = torch.full((n_l, t), prox_tau, dtype=self.dtype,
+                                 device=self.device)
+        if not self.use_staged:
+            if self.local_prox:
+                p = dict(p, x_prev=x_prev, prox_tau=tau[:, 0])
+            lsol = solve_nlp_batch(self._local_nlp, x0, p, self.scfg)
+            return lsol.x, lsol
+        if self.local_prox:
+            p = dict(p, w_prev=self._loc_to_staged(x_prev), prox_tau=tau)
+        lsol = solve_staged(self._local_staged, self._loc_to_staged(x0), p,
                             self.scfg)
         self.block_solves += lsol.block_solves
-        x_out = self._loc_from_staged(lsol.w, init_state)
-        xs, us, lam, _ = self._loc_split(x_out)
-        health = (torch.mean(lsol.converged.to(self.dtype)),
-                  torch.max(lsol.kkt_error))
-        return xs, us, lam, x_out, health
+        return self._loc_from_staged(lsol.w, init_state), lsol
 
-    def _edge_solve(self, bs: BarState, local_fullx, rho, pair_mask):
-        """The edge consensus NLP as one staged lane (stages = steps)."""
-        t, v = self.ocfg.horizon - 1, self.num_veh
-        pe = dict(lamb_bar=bs.lamb_bar.movedim(1, 0),
-                  local_fullx=local_fullx.movedim(1, 0),
-                  rho=rho.expand(t),
-                  pair_mask=pair_mask.expand((t,) + pair_mask.shape))
-        z0 = bs.z_bar.movedim(1, 0).reshape(t, -1)
-        esol = solve_staged(self._edge_staged, z0[None],
-                            {k: a[None] for k, a in pe.items()}, self.scfg)
-        self.block_solves += esol.block_solves
-        z_bar = esol.w[0].reshape(t, v, self.N_FULL).movedim(0, 1)
-        return z_bar, esol
+    def _solve_edges(self, z_bar, local_fullx, lamb_bar, pair_mask, rho):
+        """The edge consensus NLPs of S lanes (scenarios) in one solve, in
+        the ``edge_mode``'s form, warm-started at the previous consensus
+        iterate: ``z_bar``, ``local_fullx``, ``lamb_bar [S, V, N-1, F]``,
+        ``pair_mask [S, P]``. Returns ``z_bar [S, V, N-1, F]`` and the
+        solver's record."""
+        s, v, t, f = z_bar.shape
+        if self.edge_mode == "joint":
+            pe = dict(lamb_bar=lamb_bar, local_fullx=local_fullx,
+                      rho=rho.expand(s), pair_mask=pair_mask)
+            esol = solve_nlp_batch(self._edge_nlp, z_bar.reshape(s, -1), pe,
+                                   self.scfg)
+            return esol.x.reshape(s, v, t, f), esol
+        pe = dict(lamb_bar=lamb_bar.movedim(2, 1),
+                  local_fullx=local_fullx.movedim(2, 1),
+                  rho=rho.expand(s, t),
+                  pair_mask=pair_mask[:, None].expand(
+                      (s, t) + pair_mask.shape[1:]))
+        z0 = z_bar.movedim(2, 1).reshape(s, t, v * f)
+        if self.edge_mode == "staged":
+            # one lane per scenario whose stages are the horizon steps
+            esol = solve_staged(self._edge_staged, z0, pe, self.scfg)
+            self.block_solves += esol.block_solves
+            z_t = esol.w
+        else:
+            # per_step: every (scenario, step) an NLP of its own
+            esol = solve_nlp_batch(
+                self._edge_nlp_t, z0.reshape(s * t, v * f),
+                {k: a.reshape((s * t,) + a.shape[2:]) for k, a in pe.items()},
+                self.scfg)
+            z_t = esol.x
+        return z_t.reshape(s, t, v, f).movedim(1, 2), esol
 
     def _admm_iteration(self, c: dict, it: int, init_state, ref_win, rho):
-        """One ADMM iteration: staged local NLPs -> bar-state broadcast ->
-        staged edge NLP -> certificate exchange -> dual update."""
+        """One ADMM iteration: local NLPs -> bar-state broadcast -> edge
+        NLP -> certificate exchange -> dual update."""
         ocfg = self.ocfg
         bs = c["bs"]
         pair_mask = self._pair_proximity_mask(bs.local_x)
         mask_veh = pair_mask[self._pair_id]                    # [V, K]
-        xs, us, lam, loc_x, loc_health = self._local_solve(
-            bs, init_state, ref_win, rho, c["loc_x"], mask_veh,
-            self._prox_tau(it))
+        prox_tau = (c["prox_tau"].expand(self.num_veh) if self.prox_adaptive
+                    else self._prox_tau(it))
+        if self.local_warm_mode == "previous":
+            x0 = c["loc_x"]
+        else:
+            # reference semantics: re-initialize from the reference
+            # trajectory every iteration (local_initialize :50-55)
+            x0 = self._local_warm(ref_win, bs, mask_veh)
+        loc_x, lsol = self._solve_locals(
+            x0, c["loc_x"], init_state,
+            self._local_lane_params(bs, init_state, ref_win, rho, mask_veh),
+            prox_tau)
+        xs, us, lam, _ = self._loc_split(loc_x)
         # bar_state_update (ref optimizer.py:205-222)
         a_new, b_new = halfspaces(xs[:, 1:, :], self.vcfg,
                                   ocfg.use_delay_tightening)
         lamb_ij = lam if self.lamb_ij_mode == "track_local" else bs.lamb_ij
         bs = bs._replace(a_mat=a_new, b=b_new, local_x=xs[:, 1:, :],
                          lamb_ij=lamb_ij)
-        # edge solve, warm-started at the previous consensus iterate
         local_fullx = self._zip_z(bs.local_x, bs.lamb_ij)
-        z_bar, esol = self._edge_solve(bs, local_fullx, rho, pair_mask)
+        z_bar, esol = self._solve_edges(bs.z_bar[None], local_fullx[None],
+                                        bs.lamb_bar[None], pair_mask[None],
+                                        rho)
+        z_bar = z_bar[0]
         bs = bs._replace(z_bar=z_bar)
         if self.lamb_ij_mode == "track_edge":
             # neighbours plan against the (relaxed) consensus certificates
             th = self.lamb_ij_relax
+            if self.lamb_ij_hysteresis:
+                # hold them while the primal residual rises
+                th = torch.where(c["primal"] > c["primal_prev"], 0.0,
+                                 torch.tensor(th, dtype=self.dtype,
+                                              device=self.device))
             bs = bs._replace(lamb_ij=th * self._edge_lam(z_bar)
                              + (1.0 - th) * bs.lamb_ij)
         # dual update on lamb_bar: consensus error r = local_fullx - z_bar
@@ -578,13 +782,21 @@ class ConsensusObcaPlanner:
         t_scale = (self.num_veh / 2.0) if ocfg.thres_per_veh else 1.0
         done = torch.logical_and(primal <= ocfg.primal_thres * t_scale,
                                  dual <= ocfg.dual_thres * t_scale)
-        nlp_ok = torch.stack([loc_health[0],
+        nlp_ok = torch.stack([torch.mean(lsol.converged.to(self.dtype)),
                               torch.mean(esol.converged.to(self.dtype))])
-        nlp_kkt = torch.stack([loc_health[1], torch.max(esol.kkt_error)])
+        nlp_kkt = torch.stack([torch.max(lsol.kkt_error),
+                               torch.max(esol.kkt_error)])
+        tau_next = c["prox_tau"]
+        if self.prox_adaptive:
+            # grow tau where the primal residual rose
+            tau_next = torch.clamp(torch.where(
+                primal > c["primal"], tau_next * self.prox_growth, tau_next),
+                max=self.prox_tau_max)
         return dict(bs=bs, us_prev=us, lamb_prev=bs.lamb_bar, xs=xs,
                     loc_x=loc_x, nlp_ok=nlp_ok, nlp_kkt=nlp_kkt,
                     sum_err=dual_new.sum_err, diff_val=dual_new.diff_val,
-                    done=done, primal=primal, dual=dual, gap=gap)
+                    done=done, primal=primal, dual=dual, gap=gap,
+                    primal_prev=c["primal"], prox_tau=tau_next)
 
     def _mpc_step(self, init_state, bar_state_prev: BarState, step_idx: int):
         """One MPC step: the ADMM loop until both residuals are under their
@@ -609,7 +821,8 @@ class ConsensusObcaPlanner:
                  sum_err=zeros_f, diff_val=zeros_f,
                  nlp_ok=torch.ones((2,), **kw),
                  nlp_kkt=torch.zeros((2,), **kw),
-                 primal=inf, dual=inf, gap=inf)
+                 primal=inf, dual=inf, gap=inf, primal_prev=inf,
+                 prox_tau=torch.tensor(self.local_prox, **kw))
         it = 0
         while it < ocfg.max_admm_iters:
             c = self._admm_iteration(c, it, init_state, ref_win, rho)

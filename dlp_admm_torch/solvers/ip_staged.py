@@ -93,11 +93,12 @@ def _amax(x, dims=(1, 2)):
     return torch.clamp(torch.amax(x, dim=dims), min=0.0)
 
 
-def _ftb(v, dv, tau):
-    """Per-lane fraction-to-boundary over a [S, T, q] tensor."""
+def _ftb(v, dv, tau, dims=(1, 2)):
+    """Per-lane fraction-to-boundary over ``dims`` of a [S, ...] tensor:
+    the largest alpha in (0, 1] with ``v + alpha dv >= (1 - tau) v``."""
     neg = dv < 0
     ratio = torch.where(neg, -tau * v / torch.where(neg, dv, -1.0), 1.0)
-    return torch.clamp(torch.amin(ratio, dim=(1, 2)), max=1.0)
+    return torch.clamp(torch.amin(ratio, dim=dims), max=1.0)
 
 
 def block_thomas_solve(diag, upper, rhs):
@@ -130,6 +131,17 @@ class _Carry(NamedTuple):
 
 
 _capture_streams: dict = {}
+# one graph memory pool per device, shared by every solve's capture, with
+# the last graph captured into it (``dev -> (pool, graph)``). With a pool of
+# its own per capture, the card's reserved memory grew with every solve:
+# the allocator frees a released pool's blocks only when an allocation
+# fails, and never during a capture, so a long batched run ran out of
+# memory inside one. Each graph is replayed only inside its own solve,
+# before the next capture, so a later capture may reuse the blocks of an
+# earlier one. The last graph is kept until the next capture has joined
+# the pool: a pool that no graph holds any more is released, and joining
+# it then fails.
+_capture_pools: dict = {}
 # diagnostics: when set, called as ``on_trip(trip, carry, trips)`` before the
 # first IP trip of a solve (``trips`` 0) and after every trip of either loop
 # (``trips`` counting from 1); it may read the device, and may run the pure
@@ -185,12 +197,15 @@ def _trips_graphed(trip, carry, max_trips):
     stream.wait_stream(torch.cuda.current_stream(dev))
 
     graph = torch.cuda.CUDAGraph()
+    pool, _ = _capture_pools.get(dev) or (torch.cuda.graph_pool_handle(),
+                                          None)
     before = dict(thomas.captured)
     with torch.cuda.stream(stream):
-        graph.capture_begin()
+        graph.capture_begin(pool=pool)
         for dst, src in zip(static, trip(static)):
             dst.copy_(src)
         graph.capture_end()
+    _capture_pools[dev] = (pool, graph)
     kernels = {k: n - before[k] for k, n in thomas.captured.items()}
     while trips < max_trips:
         thomas.replay(graph, kernels)

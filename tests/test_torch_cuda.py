@@ -347,3 +347,60 @@ def test_graphed_pi_admm_fused_batch_matches_cpu(cuda):
                                        msg=name)
     longest = int(want.iterations.sum(dim=1).max())
     assert one_trips == longest and trips % 8 == 0 and trips >= longest
+
+
+def _batch_planner(device, max_admm_iters=3):
+    """The flagship's float64 profile at a small ADMM cap
+    (``tests/test_torch_consensus_spmd.py``'s batch configuration)."""
+    return ConsensusObcaPlanner(
+        ObcaConfig(horizon=8, min_dis=0.1, rho=100.0,
+                   max_admm_iters=max_admm_iters),
+        scfg=SolverConfig(ip_iters=40, ip_tol=1e-6), local_prox=700.0,
+        prox_growth=1.5, device=device)
+
+
+def _batch_starts():
+    pl = _batch_planner("cpu")
+    init0 = pl.refs[:, 0, :].numpy()
+    inits = np.broadcast_to(init0, (3,) + init0.shape).copy()
+    inits[1:, :, :2] += 0.3 * np.random.default_rng(1).normal(size=(2, 2, 2))
+    return inits
+
+
+@pytest.mark.cuda
+def test_graphed_batch_step_matches_cpu(cuda):
+    """The scenario-batched consensus step on the card (every staged solve
+    a replayed CUDA graph of the IP trip, K1 on (6, 7, 19) and (3, 7, 20))
+    equals the CPU's at 3 lanes over 2 MPC steps (1e-10, equal iterations
+    and flags); the launches equal the block solves. Lane 0 is done after
+    its first ADMM iteration while the others run to the cap of 3: its
+    outputs are bit for bit those of the same step capped at 1 iteration,
+    so its frozen carry kept its bits through the other lanes'
+    iterations."""
+    from dlp_admm_torch.interop import bar_state_from_numpy
+    from dlp_admm_torch.parallel.consensus_spmd import (
+        make_consensus_spmd_step, run_scenario_batch)
+    inits = _batch_starts()
+    pl = _batch_planner(cuda)
+    thomas.reset_counts()
+    got = run_scenario_batch(pl, inits, 2)
+    torch.cuda.synchronize()
+    assert thomas.launches == pl.block_solves > 0
+    want = run_scenario_batch(_batch_planner("cpu"), inits, 2)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[4], want[4])
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-10)
+    assert got[1][:, 0].tolist() == [1, 3, 3]
+    # the frozen lane
+    bs = _batch_planner(cuda).create_bar_state()
+    bs_b = bar_state_from_numpy({k: np.stack([v.cpu().numpy()] * 3)
+                                 for k, v in bs._asdict().items()},
+                                device=cuda)
+    st = torch.as_tensor(inits, device=cuda)
+    out3 = make_consensus_spmd_step(_batch_planner(cuda, 3))(st, bs_b, 0)
+    out1 = make_consensus_spmd_step(_batch_planner(cuda, 1))(st, bs_b, 0)
+    assert out3[2].tolist() == [1, 3, 3] and out1[2].tolist() == [1, 1, 1]
+    for a, b in zip(out3[:1] + tuple(out3[1]) + out3[2:],
+                    out1[:1] + tuple(out1[1]) + out1[2:]):
+        assert torch.equal(a[0], b[0])

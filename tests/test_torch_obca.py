@@ -266,12 +266,10 @@ def test_reference_window_clamps_like_dynamic_slice(planners):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(edge_mode="joint"), dict(edge_mode="per_step"),
-    dict(use_staged=False), dict(branch_commit=True),
-    dict(prox_adaptive=True), dict(lamb_ij_hysteresis=True),
-    dict(edge_prox=1.0)],
-    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+@pytest.mark.parametrize("kw", [dict(branch_commit=True),
+                                dict(edge_prox=1.0)],
+                         ids=lambda kw: "-".join(f"{k}={v}"
+                                                 for k, v in kw.items()))
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TPlanner(device="cpu", **kw)

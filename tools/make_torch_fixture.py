@@ -30,7 +30,27 @@ on the CPU through ``ConsensusObcaPlanner.run_scan(return_health=True)``, all
   per-step driver's) and one ``_pairwise_iter`` of step 1 started from it,
   saved as ``tests/data/pi_admm_bench_f64_ref.npz``;
 * ``pi_admm_f32``: ``bench.py``'s own float32 run of that workload (32
-  lanes, 12 steps), saved as ``tests/data/pi_admm_bench_f32_ref.npz``.
+  lanes, 12 steps), saved as ``tests/data/pi_admm_bench_f32_ref.npz``;
+* ``batch``: ``bench.py``'s third workload (``:239-283``), the
+  scenario-batched flagship through ``parallel.consensus_spmd.
+  run_scenario_batch`` in the float64 profile: 16 starts, the flagship's
+  start plus 0.25 m normal jitter on the positions from ``default_rng(0)``,
+  lane 0 unperturbed, over its first ``BATCH["steps"]`` (6) of 20 MPC
+  steps (about 4 minutes a run on the CPU), saved as
+  ``tests/data/consensus_obca_batch_f64_ref.npz``; also ``chaotic_from
+  [16]``, per lane the first step at which the same run with its starts
+  moved by 1e-12 (``BATCH["chaos_seeds"]``) leaves it by more than 1e-6 or
+  takes other ADMM iteration counts (the number of steps where it never
+  does);
+* ``spmd``: the five cases of ``tests/test_consensus_spmd.py``, the
+  planner modes the batched step honours and a float32 case, each one JAX
+  ``make_consensus_spmd_step`` call on a 1x1 mesh (``SPMD_CASES``), and for
+  the first case a second step from the first's output, saved as
+  ``tests/data/consensus_spmd_cases_ref.npz`` (keys ``<case>__<field>``:
+  ``init``, ``bs_<leaf>``, ``out_<i>`` and, for step 1, ``step1_<i>``, the
+  ``BarState`` outputs as ``out_1_<leaf>``; ``profile`` maps each case to
+  its configuration). ``tests/test_torch_consensus_spmd.py`` holds the port
+  to it and checks one case against JAX run live.
 
 Each OBCA file holds
 
@@ -62,7 +82,11 @@ of the start shows at which (lane, step) the JAX run leaves itself
 (``pi_admm_f32``: the same against the float32 fixture, with the run's
 capped steps, converged fraction and minimum distance).
 
-Usage: python tools/make_torch_fixture.py [--profile f64|f32|v4|pi_admm|pi_admm_f32]
+With ``--profile batch`` the noise goes on the 16 starts, and the run prints
+per (lane, step) its largest state distance from the committed fixture.
+
+Usage: python tools/make_torch_fixture.py
+           [--profile f64|f32|v4|pi_admm|pi_admm_f32|batch|spmd]
            [--steps N] [--out PATH] [--noise EPS --seed N]
 """
 import argparse
@@ -119,13 +143,55 @@ PI_ADMM = dict(num_veh=16, horizon=30, n_scen=32, n_steps=12, iter_budget=210,
                            carry_admm_state=True, edge_prox_tau=2.0))
 PI_ADMM_LANES = dict(pi_admm=2, pi_admm_f32=32)
 
+# bench.py:239-283, the scenario-batched workload of its third metric
+BATCH = dict(n_scen=16, jitter=0.25, seed=0, steps=6, planner=PROFILE,
+             chaos_noise=1e-12, chaos_seeds=(1, 2), chaos_tol=1e-6)
+
+# tests/test_consensus_spmd.py's cases (its _setup: ADMM cap 2, ip_iters 5,
+# rho 100, dense locals and the joint edge unless named), the modes of the
+# batched step (ADMM cap 4) and a float32 case of the staged profile
+_SPMD_MODES = dict(max_admm_iters=4, num_veh=2, horizon=6, n_scen=2)
+SPMD_CASES = {
+    "two_vehicle_reference_problem": dict(num_veh=2, horizon=8, n_scen=4),
+    "four_vehicle_blocks_with_gating": dict(
+        num_veh=4, horizon=5, n_scen=4,
+        planner=dict(gate_pairs=True, gate_thres=12.0)),
+    "track_local_mode": dict(num_veh=2, horizon=5, n_scen=2,
+                             planner=dict(lamb_ij_mode="track_local")),
+    "staged_default_mode": dict(
+        num_veh=2, horizon=6, n_scen=2,
+        planner=dict(use_staged=True, edge_mode="staged")),
+    "annealed_prox_profile": dict(
+        num_veh=2, horizon=6, n_scen=2,
+        planner=dict(use_staged=True, edge_mode="staged", local_prox=700.0,
+                     prox_growth=1.5, prox_tau_max=1.0e9)),
+    # dense local NLPs and the edge as one dense NLP per horizon step
+    "use_staged=False-edge_mode=per_step": dict(
+        _SPMD_MODES, planner=dict(use_staged=False, edge_mode="per_step")),
+    # staged locals, the joint edge, the adaptive prox ratchet and the
+    # certificate hysteresis (both act from the third ADMM iteration on)
+    "edge_mode=joint-prox_adaptive-lamb_ij_hysteresis": dict(
+        _SPMD_MODES, planner=dict(
+            use_staged=True, edge_mode="joint", local_prox=700.0,
+            prox_growth=1.5, prox_adaptive=True, lamb_ij_hysteresis=True)),
+    "float32_staged_profile": dict(
+        num_veh=2, horizon=8, n_scen=2, dtype="float32",
+        scfg=dict(ip_iters=12, ip_tol=1e-4),
+        planner=dict(use_staged=True, edge_mode="staged", local_prox=700.0,
+                     prox_growth=1.5, prox_tau_max=1.0e9)),
+}
+SPMD_CARRIED = "two_vehicle_reference_problem"
+
 
 def default_out(name):
     if name in PI_ADMM_LANES:
         stem = "f64" if name == "pi_admm" else "f32"
         return os.path.join(ROOT, "tests", "data",
                             f"pi_admm_bench_{stem}_ref.npz")
-    stem = "v4_f64" if name == "v4" else name
+    if name == "spmd":
+        return os.path.join(ROOT, "tests", "data",
+                            "consensus_spmd_cases_ref.npz")
+    stem = {"v4": "v4_f64", "batch": "batch_f64"}.get(name, name)
     return os.path.join(ROOT, "tests", "data",
                         f"consensus_obca_{stem}_ref.npz")
 
@@ -276,10 +342,151 @@ def write_pi_admm(name, out, commit, noise=0.0, seed=0):
         capped=capped, min_distance_m=min_dist, commit=commit)))
 
 
+def spmd_case(name):
+    """The JAX planner of ``SPMD_CASES[name]``, its perturbed starts
+    ``[S, V, 5]`` (``tests/test_consensus_spmd.py``'s ``_setup``: 0.05 m
+    on the positions from ``default_rng(0)``) and the batched ``BarState``.
+    A float32 case needs JAX's 64-bit mode off."""
+    case = SPMD_CASES[name]
+    kw = dict(dict(use_staged=False, edge_mode="joint"),
+              **case.get("planner", {}))
+    dtype = case.get("dtype", "float64")
+    v, n_scen = case["num_veh"], case["n_scen"]
+    pl = ConsensusObcaPlanner(
+        ObcaConfig(num_veh=v, horizon=case["horizon"],
+                   max_admm_iters=case.get("max_admm_iters", 2), rho=100.0),
+        scfg=SolverConfig(**case.get("scfg", dict(ip_iters=5, ip_tol=1e-6))),
+        dtype=getattr(jax.numpy, dtype), **kw)
+    rng = np.random.default_rng(0)
+    init = np.broadcast_to(np.asarray(pl.refs[:, 0, :]),
+                           (n_scen, v, 5)).copy()
+    init[:, :, :2] += 0.05 * rng.normal(size=(n_scen, v, 2))
+    bs = jax.tree.map(lambda a: jax.numpy.broadcast_to(a, (n_scen,) + a.shape),
+                      pl.create_bar_state())
+    return pl, init.astype(dtype), bs
+
+
+def spmd_outputs(step, init, bs, k):
+    """One JAX batched step as a flat dict of numpy arrays (the
+    ``BarState`` output field by field)."""
+    out = step(jax.numpy.asarray(init), bs, jax.numpy.asarray(k, "int32"))
+    flat = {f"out_1_{f}": np.asarray(x) for f, x in out[1]._asdict().items()}
+    flat.update({f"out_{i}": np.asarray(x) for i, x in enumerate(out)
+                 if i != 1})
+    return out, flat
+
+
+def write_spmd(out, commit):
+    from jax.sharding import Mesh
+    from dlp_admm_tpu.parallel.consensus_spmd import make_consensus_spmd_step
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                ("scenario", "vehicle"))
+    t0 = time.perf_counter()
+    arrays = {}
+    for name, case in SPMD_CASES.items():
+        jax.config.update("jax_enable_x64",
+                          case.get("dtype", "float64") == "float64")
+        pl, init, bs = spmd_case(name)
+        step = make_consensus_spmd_step(pl, mesh)
+        res, flat = spmd_outputs(step, init, bs, 0)
+        rec = dict(init=init, **{f"bs_{f}": np.asarray(x)
+                                 for f, x in bs._asdict().items()}, **flat)
+        if name == SPMD_CARRIED:
+            _, flat1 = spmd_outputs(step, np.asarray(res[0]), res[1], 1)
+            rec.update({f"step1_{k[4:]}": x for k, x in flat1.items()})
+        arrays.update({f"{name}__{k}": x for k, x in rec.items()})
+        print(json.dumps(dict(case=name, iterations=np.asarray(res[2])
+                              .tolist(), converged=np.asarray(res[5])
+                              .tolist())), flush=True)
+    jax.config.update("jax_enable_x64", True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(out, **arrays, profile=np.asarray(json.dumps(
+        SPMD_CASES, sort_keys=True)), commit=np.asarray(commit))
+    print(json.dumps(dict(out=os.path.relpath(out, ROOT), profile="spmd",
+                          seconds=round(time.perf_counter() - t0, 1),
+                          commit=commit)))
+
+
+def batch_starts(pl):
+    """bench.py:249-255: the flagship's start plus 0.25 m jitter on every
+    lane's positions but lane 0's, ``[16, 2, 5]``."""
+    b = BATCH
+    init0 = np.asarray(pl.refs[:, 0, :])
+    inits = np.broadcast_to(init0, (b["n_scen"],) + init0.shape).copy()
+    pert = b["jitter"] * np.random.default_rng(b["seed"]).normal(
+        size=(b["n_scen"], 2, 2))
+    pert[0] = 0.0
+    inits[:, :, :2] += pert
+    return inits
+
+
+def write_batch(out, commit, noise=0.0, seed=0):
+    """JAX's ``run_scenario_batch`` of bench.py's third metric over the
+    first ``BATCH["steps"]`` steps. With ``noise``, the starts are moved by
+    normal noise of that size (``seed``), nothing is saved and the
+    distances per (lane, step) from the committed fixture are printed;
+    without, the file gets ``chaotic_from`` from the runs moved by
+    ``chaos_noise`` (``chaos_seeds``)."""
+    from dlp_admm_tpu.parallel.consensus_spmd import run_scenario_batch
+    b = BATCH
+    pl = make_planner("f64")
+    inits = batch_starts(pl)
+
+    def run(start):
+        t0 = time.perf_counter()
+        res = run_scenario_batch(pl, start, b["steps"])
+        return [np.asarray(x) for x in res], time.perf_counter() - t0
+
+    def parting(res, ref_states, ref_its):
+        """Per lane, the first step at which ``res`` is more than
+        ``chaos_tol`` from the reference run or takes other iterations."""
+        err = np.abs(res[0][1:] - ref_states[1:]).max(axis=(2, 3)).T
+        bad = (err > b["chaos_tol"]) | (res[1] != ref_its)
+        first = np.where(bad.any(axis=1), bad.argmax(axis=1), b["steps"])
+        return first, err
+
+    if noise:
+        ref = np.load(default_out("batch"))
+        moved = inits + noise * np.random.default_rng(seed).normal(
+            size=inits.shape)
+        res, secs = run(moved)
+        first, err = parting(res, ref["states"], ref["iterations"])
+        print(json.dumps(dict(
+            profile="batch", noise=noise, seed=seed, seconds=round(secs, 1),
+            iterations=res[1].tolist(),
+            fixture_iterations=ref["iterations"].tolist(),
+            max_state_dist_per_step=err.tolist(),
+            parts_from=first.tolist(), commit=commit)))
+        return
+    res, secs = run(inits)
+    states, its, prs, dus, cvs, gaps = res
+    chaotic = np.full(b["n_scen"], b["steps"])
+    for sd in b["chaos_seeds"]:
+        moved = inits + b["chaos_noise"] * np.random.default_rng(sd).normal(
+            size=inits.shape)
+        first, _ = parting(run(moved)[0], states, its)
+        chaotic = np.minimum(chaotic, first)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(
+        out, states=states, iterations=its, primal=prs, dual=dus,
+        converged=cvs, gaps=gaps, chaotic_from=chaotic,
+        profile=np.asarray(json.dumps(b, sort_keys=True)),
+        commit=np.asarray(commit))
+    p = states[..., :2]
+    print(json.dumps(dict(
+        out=os.path.relpath(out, ROOT), profile="batch",
+        steps=b["steps"], seconds=round(secs, 1), iterations=its.tolist(),
+        chaotic_from=chaotic.tolist(),
+        res_ok=int(((prs <= 0.01) & (dus <= 0.01)).sum()),
+        min_distance_m=float(np.linalg.norm(p[:, :, 0] - p[:, :, 1],
+                                            axis=-1).min()),
+        gap_median=float(np.median(gaps)), commit=commit)))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", choices=sorted(PROFILES) + sorted(
-        PI_ADMM_LANES), default="f64")
+        PI_ADMM_LANES) + ["batch", "spmd"], default="f64")
     ap.add_argument("--steps", type=int, default=None,
                     help="MPC steps (default: the whole 42-step run)")
     ap.add_argument("--out", default=None,
@@ -297,6 +504,10 @@ def main():
                             capture_output=True, text=True).stdout.strip()
     if args.profile == "v4":
         return write_v4(args.out, commit)
+    if args.profile == "batch":
+        return write_batch(args.out, commit, args.noise, args.seed)
+    if args.profile == "spmd":
+        return write_spmd(args.out, commit)
     if args.profile in PI_ADMM_LANES:
         return write_pi_admm(args.profile, args.out, commit, args.noise,
                              args.seed)

@@ -13,8 +13,11 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
 3. kernel vs plain version on the card, float64 and float32, plain and
    equilibrated, at (S, T, B) = (2, 7, 19), (1, 7, 20), (32, 7, 19),
    (256, 7, 19) (warp kernel, and the wide kernel forced onto the same
-   shapes) and (4, 7, 33), (4, 7, 43), (2, 7, 61), (1, 7, 80), (2, 7, 80),
+   shapes), (4, 7, 33), (4, 7, 43), (2, 7, 61), (1, 7, 80), (2, 7, 80),
    (1, 7, 97) (wide kernel; float64 equilibrated past 80 must be refused),
+   (16, 7, 20) and, at the recursion length T = 14 of the centralized
+   planner, (1, 14, 22), (1, 14, 34), (1, 14, 45), (1, 14, 66), (1, 14, 76)
+   (the 4-vehicle centralized width (1, 14, 108) must be refused),
    on diagonally dominant, KKT-style saddle, zero-leading-block saddle and
    (equilibrated only) badly scaled systems made with numpy from a fixed
    seed (tolerances below);
@@ -81,6 +84,34 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    lane-iterations/s, executed ADMM iterations (the slowest lane's, summed
    over steps) and loop efficiency printed beside the single-scenario run.
 
+11. the centralized joint planner, ``run_obca(Formulation.CENTRALIZED)``
+   with its defaults (2 vehicles overtaking, horizon 15, ``min_dis`` 1.0,
+   35 MPC steps, float64): its staged solve is one lane of 14 stages, so
+   K1 runs at (1, 14, 34); held against the committed JAX run
+   ``tests/data/obca_centralized_ref.npz`` (equal IP iterations and states
+   within 1e-6 up to the step where the JAX run, its references moved by
+   1e-12, leaves itself; the rest printed), the launches equal to the block
+   solves, all at (1, 14, 34); wall per step, IP trips per step and graph
+   replays printed. One 3-vehicle ``solve_at`` (K1 at (1, 14, 66)) on the
+   kernels, on their plain version and against
+   ``tests/data/obca_centralized_v4_ref.npz``; the 4-vehicle one must be
+   refused (its KKT width 108 is past the wide kernel's float64 range).
+   The centralized side of ``tests/test_parity_oracle.py``'s conflict case
+   (``min_dis`` 0.5, ``warm_mode="previous"``, 30 steps) on its gates
+   (finite states, footprint gap >= 0.8 ``min_dis``, >= 24 of 30 steps
+   converged, overtake gain > 15 m), JAX's numbers beside; 3 float32 steps
+   (``ip_tol=1e-4``, the equilibrated kernel at T = 14) on
+   ``tests/test_obca.py:18-27``'s tracking gates;
+12. the classic PI-ADMM layout, ``run_pi_admm()`` with its defaults (2
+   vehicles crossing, horizon 5, all 45 steps, float64) held against
+   ``tests/data/pi_admm_classic_ref.npz`` (equal iterations and states
+   within 1e-6 up to JAX's own chaotic step); the paper's A/B of
+   ``tests/test_pi_vs_plain.py:43-52`` on the card (PI-reciprocal's
+   ``sum_iter_num`` under 0.7 x plain's, both runs finite with a minimum
+   distance over 0.8 m; JAX's counts printed beside); no block-Thomas
+   kernel launched on this path; ``--full`` adds the sigmoid schedule's
+   safety A/B (``test_pi_vs_plain.py:54``).
+
 Every path is driven with the launch counts set to 0 just before and read
 just after. Prints, before the last line, one JSON object with the kernels'
 numbers and the ``nvidia-smi`` name and power limit; the last line is
@@ -108,6 +139,9 @@ FIXTURE_PI = os.path.join(DATA, "pi_admm_bench_f64_ref.npz")
 FIXTURE_PI_F32 = os.path.join(DATA, "pi_admm_bench_f32_ref.npz")
 FIXTURE_BATCH = os.path.join(DATA, "consensus_obca_batch_f64_ref.npz")
 FIXTURE_CASES = os.path.join(DATA, "consensus_spmd_cases_ref.npz")
+FIXTURE_CEN = os.path.join(DATA, "obca_centralized_ref.npz")
+FIXTURE_CEN_V4 = os.path.join(DATA, "obca_centralized_v4_ref.npz")
+FIXTURE_CLASSIC = os.path.join(DATA, "pi_admm_classic_ref.npz")
 SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (256, 7, 19))   # B <= 32
 # the batched driver's edge solves (its locals are (32, 7, 19) above)
 BATCH_SHAPES = ((16, 7, 20),)
@@ -117,6 +151,16 @@ BATCH_SHAPES = ((16, 7, 20),)
 # kernel did not hold; past it the wrapper must refuse)
 WIDE_SHAPES = ((4, 7, 33), (4, 7, 43), (2, 7, 61), (1, 7, 80), (2, 7, 80),
                (1, 7, 97))
+# T = 14 (horizon 15): the centralized planner's staged KKT blocks at 2 and
+# 3 vehicles (34 and 66: 7V + 8P decision columns, 5V dynamics rows, 2P
+# pairing rows) and the stage decision widths 22, 45 and 76 of 2, 3 and 4
+# vehicles (the warp kernel's 32-wide build, the wide kernel's classes 48
+# and 80) at the recursion length no earlier path drove
+T14_SHAPES = ((1, 14, 22), (1, 14, 34), (1, 14, 45), (1, 14, 66),
+              (1, 14, 76))
+# the 4-vehicle centralized KKT width: past the wide kernel's float64 range
+# (97) and its float32 equilibrated range (106), so the wrapper refuses it
+CEN_V4_WIDTH = 108
 KINDS = ("diag_dominant", "kkt_saddle", "zero_lead")
 EQ_KINDS = KINDS + ("badly_scaled",)
 # (kind, equilibrate): the badly scaled kind is what equilibration is for;
@@ -134,7 +178,16 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # the order of rounding agree to their condition number times 6e-8 (5e-4 on
 # the flagship's first local system). The staged solver does not lean on
 # that: it refines every solve twice against the residual. So there the
-# kernel is also held to the plain version's backward error.
+# kernel is also held to the plain version's backward error, entry by entry:
+# each row's residual over |A_i| |x| + |r_i|.
+# The centralized planner's float64 KKT block (T = 14) is held row by row
+# instead, each row's residual over |A_i|_1 max|x| + |r_i|: its solution
+# spans 12 orders of magnitude (1e-12 to 724) and some of its rows have a
+# zero right-hand side, so the entry-by-entry measure is noise for any
+# elimination there (on an H100, LAPACK's LU scores 1.0 on it, which the
+# run records beside the block, and the plain version 0.030). Both measures
+# are printed for every block.
+ROWWISE_PATHS = ("centralized float64",)
 RUN_TOL = {torch.float64: 1e-10, torch.float32: 5e-3}
 STATE_TOL = 1e-6            # port vs JAX fixture, float64 states
 # float32 slice vs the JAX float32 run: both stop each MPC step's ADMM loop
@@ -166,6 +219,13 @@ BATCH_F32_SMOKE_STEPS = 2
 # accelerator): quality only
 JAX_BATCH_QUALITY = dict(res_ok="288/320", min_distance_m=3.53,
                          gap_median=0.00844)
+# tests/test_parity_oracle.py:100-140, the centralized side's gates
+ORACLE_MARGIN = 0.8          # footprint gap >= 0.8 min_dis
+ORACLE_MIN_CONVERGED = 24    # of 30 steps
+ORACLE_MIN_GAIN_M = 15.0     # overtake gain
+# tests/test_pi_vs_plain.py:43-52: PI-reciprocal below 0.7x plain
+PI_AB_RATIO = 0.7
+PI_AB_MIN_DIST = 0.8
 DEVICE = "cuda"
 # NVIDIA H100 SXM data sheet: HBM3 rate and the vector (non-tensor-core)
 # peaks; FP64 vector is half the FP32 rate
@@ -352,18 +412,25 @@ def timings(thomas, diag, upper, rhs, equilibrate):
 
 
 def backward_error(diag, upper, rhs, x):
-    """max |A x - r| / (|A| |x| + |r|) over rows and systems, in float64."""
+    """``(componentwise, row-wise)`` backward errors of ``x``, in float64,
+    max over rows and systems: ``|A x - r|_i / (|A_i| |x| + |r_i|)`` and
+    ``|A x - r|_i / (|A_i|_1 max|x| + |r_i|)``."""
     a, r = dense_system(diag.double(), upper.double(), rhs.double())
     xs = x.double().reshape(r.shape)
-    res = (a @ xs - r).abs() / (a.abs() @ xs.abs() + r.abs()).clamp(min=1e-300)
-    return float(res.max())
+    res = (a @ xs - r).abs()
+    scale = a.abs().sum(-1, keepdim=True) * xs.abs().amax(dim=(1, 2),
+                                                          keepdim=True)
+    return (float((res / (a.abs() @ xs.abs() + r.abs()).clamp(
+                min=1e-300)).max()),
+            float((res / (scale + r.abs()).clamp(min=1e-300)).max()))
 
 
 def compare(thomas, diag, upper, rhs, label, equilibrate=False, kernel=None,
-            timed=False, run_block=False):
+            timed=False, run_block=False, rowwise=False):
     """Kernel vs plain version on the same card tensors; raises past TOL
     (``run_block``: past RUN_TOL, or a backward error above 4 times the
-    plain version's and 10 units of rounding)."""
+    plain version's and 10 units of rounding; componentwise, or with
+    ``rowwise`` row by row)."""
     got = thomas.launch_kernel(diag, upper, rhs, equilibrate, kernel)
     want = thomas.block_thomas_plain(diag, upper, rhs, equilibrate)
     torch.cuda.synchronize()
@@ -379,21 +446,31 @@ def compare(thomas, diag, upper, rhs, label, equilibrate=False, kernel=None,
                    s, t, b, rhs.dtype, equilibrate)["kernel"],
                max_abs_err=abs_err, max_rel_err=rel_err, tol=tol)
     if run_block:
-        row.update(
-            backward_err=backward_error(diag, upper, rhs, got),
-            plain_backward_err=backward_error(diag, upper, rhs, want))
+        (row["backward_err"], row["rowwise_backward_err"]) = \
+            backward_error(diag, upper, rhs, got)
+        (row["plain_backward_err"],
+         row["plain_rowwise_backward_err"]) = backward_error(
+            diag, upper, rhs, want)
+        row["gate"] = "row-wise" if rowwise else "componentwise"
+        if rowwise:
+            # the evidence for the row-wise gate: LAPACK's LU on the same
+            # block, in float64, scored by both measures
+            a, r = dense_system(diag.double(), upper.double(), rhs.double())
+            (row["library_backward_err"],
+             row["library_rowwise_backward_err"]) = backward_error(
+                diag, upper, rhs, torch.linalg.solve(a, r))
     if timed:
         row.update(timings(thomas, diag, upper, rhs, equilibrate))
     log(json.dumps(row))
     if not rel_err <= tol:
         raise RuntimeError(f"{label}: kernel vs plain rel err {rel_err:.3e} "
                            f"> {tol:.0e}")
-    if run_block and not row["backward_err"] <= max(
-            4.0 * row["plain_backward_err"],
-            10.0 * torch.finfo(rhs.dtype).eps):
-        raise RuntimeError(f"{label}: backward error {row['backward_err']:.3e}"
-                           f" against the plain version's "
-                           f"{row['plain_backward_err']:.3e}")
+    key = "rowwise_backward_err" if rowwise else "backward_err"
+    if run_block and not row[key] <= max(
+            4.0 * row["plain_" + key], 10.0 * torch.finfo(rhs.dtype).eps):
+        raise RuntimeError(f"{label}: {row['gate']} backward error "
+                           f"{row[key]:.3e} against the plain version's "
+                           f"{row['plain_' + key]:.3e}")
     return row
 
 
@@ -402,12 +479,12 @@ def equilibrated_max(thomas, dtype):
     return max(thomas.wide_classes(dtype, True))
 
 
-def refuse(thomas, diag, upper, rhs, label):
+def refuse(thomas, diag, upper, rhs, label, equilibrate=True):
     """A width past the kernels' range: the wrapper must raise, naming the
     bound, and launch nothing."""
     before = thomas.launches
     try:
-        thomas.launch_kernel(diag, upper, rhs, True)
+        thomas.launch_kernel(diag, upper, rhs, equilibrate)
     except ValueError as e:
         if "B <= " not in str(e) or thomas.launches != before:
             raise RuntimeError(f"{label}: refused without the bound: {e}")
@@ -471,9 +548,10 @@ def report_build(logs, wide_builds, main_path_plans):
     def spills(r):
         return bool(r.get("stack", 1) or r.get("spill_stores", 1)
                     or r.get("spill_loads", 1))
-    # the wide builds the driven paths launch: the profiling builds and the
+    # the wide builds the driven paths launch: the profiling builds, the
     # classes of the 4-vehicle (33, 80, float64) and 3-vehicle (45, float32
-    # equilibrated) widths
+    # equilibrated) consensus widths and of the centralized widths (34 and
+    # 66 float64, 34 float32 equilibrated)
     on_path = [r for r in wide if r["profiling"] or any(
         (r["dtype"], r["equilibrated"], r["ncl"], r["rpw"], r["nt"])
         == (dt, eq, p["ncl"], p["rpw"], p["nt"])
@@ -686,15 +764,25 @@ def v4_against_jax(thomas, ip_staged, run_obca, Formulation, ref):
 def main():
     ap = argparse.ArgumentParser(description="PyTorch port smoke run on CUDA")
     ap.add_argument("--full", action="store_true",
-                    help="also run all 42 MPC steps of both profiles")
+                    help="also run all 42 MPC steps of both profiles and "
+                         "the classic PI-ADMM sigmoid A/B")
     ap.add_argument("--full-batch", action="store_true",
                     help="also run bench.py's 16 x 20 scenario batch in "
                          "both profiles")
     ap.add_argument("--out", default=None,
                     help="write every record of this run to this JSON file")
     args = ap.parse_args()
-    t_start = time.perf_counter()
     records = {}
+    try:
+        smoke(args, records)
+    except BaseException:
+        dump(args.out, records)        # what ran, kept for diagnosis
+        raise
+
+
+def smoke(args, records):
+    """The phases in their order; ``records`` gathers every result."""
+    t_start = time.perf_counter()
 
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -727,15 +815,16 @@ def main():
         (str(dt)[6:].replace("float", "f"), eq,
          thomas.kernel_plan(1, 7, b, dt, eq)) for dt, eq, b in (
             (torch.float64, False, 33), (torch.float64, False, 80),
-            (torch.float32, True, 45))]
+            (torch.float32, True, 45), (torch.float64, False, 34),
+            (torch.float64, False, 66), (torch.float32, True, 34))]
     records.update(build_s=build_s, ptxas=report_build(ptxas, wide_builds,
                                                        main_path_plans))
 
     # -- 3. kernel vs plain version -------------------------------------
     rng = np.random.default_rng(0)
-    synth = []
+    synth = records["kernel_vs_plain"] = []
     for dtype in (torch.float64, torch.float32):
-        for s, t, b in SHAPES + WIDE_SHAPES + BATCH_SHAPES:
+        for s, t, b in SHAPES + WIDE_SHAPES + BATCH_SHAPES + T14_SHAPES:
             for kind_, eq in VARIANTS:
                 d, u, r = (torch.as_tensor(a, dtype=dtype, device=dev)
                            for a in make_system(rng, s, t, b, kind_))
@@ -749,7 +838,12 @@ def main():
                 if b <= thomas.WARP_MAX_B:
                     synth.append(compare(thomas, d, u, r, label, eq,
                                          kernel="wide"))
-    records["kernel_vs_plain"] = synth
+        # the 4-vehicle centralized width, in the variant the staged solver
+        # asks for in each type
+        d, u, r = (torch.as_tensor(a, dtype=dtype, device=dev) for a in
+                   make_system(rng, 1, 14, CEN_V4_WIDTH, "kkt_saddle"))
+        refuse(thomas, d, u, r, f"kkt_saddle S=1 T=14 B={CEN_V4_WIDTH} "
+               f"{str(dtype)[6:]}", equilibrate=dtype != torch.float64)
 
     # -- 4, 5. the slices -----------------------------------------------
     systems = {}
@@ -789,20 +883,26 @@ def main():
     records["batch"] = batch_path(thomas, ip_staged, paths, systems, refs,
                                   records["slice float64"], smi)
 
+    # -- 11. the centralized joint planner (K1 at T = 14) --------------
+    records["centralized"] = centralized_path(thomas, ip_staged, paths,
+                                              systems, smi)
+
     # -- 7. the kernels on the KKT blocks those runs gave them ----------
-    real = []
+    real = records["kernel_on_run_blocks"] = []
     for name, kkt in systems.items():
         for key in sorted(kkt):
             d, u, r = kkt[key]
             real.append(dict(compare(
                 thomas, d, u, r, f"{name} KKT S={key[0]} T={key[1]} "
                 f"B={key[2]}", r.dtype != torch.float64, timed=True,
-                run_block=True), path=name))
-    records["kernel_on_run_blocks"] = real
+                run_block=True, rowwise=name in ROWWISE_PATHS), path=name))
     records["clock_split"] = clock_split(thomas, systems)
 
     # -- 9. the PI-ADMM path (bench.py's first metric) -----------------
     records["pi_admm"] = pi_admm_path(thomas, paths, smi)
+
+    # -- 12. the classic PI-ADMM layout (run_pi_admm's default) --------
+    records["classic"] = classic_path(thomas, paths, smi, args.full)
 
     # -- 8. --full ------------------------------------------------------
     failures = []
@@ -837,7 +937,8 @@ def main():
     kernels = {"kernels": [
         kernel_entry("warp", real, paths, "slice float64", (2, 7, 19)),
         kernel_entry("wide", real, paths, "multi-vehicle V=4 float64",
-                     (1, 7, 80))]}
+                     (1, 7, 80), at_shapes=(
+                         ("centralized float64", (1, 14, 34)),))]}
     wall = time.perf_counter() - t_start
     records.update(kernels, paths=paths, device=kind, nvidia_smi=smi,
                    wall_s=wall)
@@ -1253,6 +1354,337 @@ def pi_admm_path(thomas, paths, smi):
     return out
 
 
+class CountReplays:
+    """Stands in for ``thomas.replay`` during a run and counts the CUDA graph
+    replays of the staged solver's IP trips."""
+
+    def __init__(self, replay):
+        self.replay, self.n = replay, 0
+
+    def __call__(self, graph, kernels):
+        self.n += 1
+        return self.replay(graph, kernels)
+
+
+def drive_centralized(thomas, ip_staged, run, solve=None):
+    """:func:`drive` that also counts the graph replays and times the run
+    between two synchronizes; returns ``(result, counts, systems, replays,
+    wall_s)``."""
+    keep = thomas.replay
+    counter = thomas.replay = CountReplays(keep)
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    try:
+        (res, wall), counts, kkt = drive(thomas, ip_staged, timed, solve)
+    finally:
+        thomas.replay = keep
+    return res, counts, kkt, counter.n, wall
+
+
+def oracle_gates(states, converged, min_dis):
+    """tests/test_parity_oracle.py:100-140's gates on the centralized run:
+    finite states, footprint gap >= 0.8 min_dis at every visited state, at
+    least 24 of 30 steps converged, an overtake gain over 15 m."""
+    from dlp_admm_torch.ops.geometry import vehicle_vertices
+    corners = vehicle_vertices(torch.as_tensor(states,
+                                               dtype=torch.float64)).numpy()
+    gap = float(min(polygon_gap(c[0], c[1]) for c in corners))
+    gain = float((states[-1, 0, 0] - states[-1, 1, 0])
+                 - (states[0, 0, 0] - states[0, 1, 0]))
+    nums = dict(min_footprint_gap_m=gap, converged=int(np.sum(converged)),
+                overtake_gain_m=gain,
+                finite=bool(np.all(np.isfinite(states))))
+    gates = {"finite states": nums["finite"],
+             f"footprint gap >= {ORACLE_MARGIN} min_dis":
+                 gap >= ORACLE_MARGIN * min_dis,
+             f"converged >= {ORACLE_MIN_CONVERGED}/30":
+                 nums["converged"] >= ORACLE_MIN_CONVERGED,
+             f"overtake gain > {ORACLE_MIN_GAIN_M} m":
+                 gain > ORACLE_MIN_GAIN_M}
+    return nums, gates
+
+
+def centralized_path(thomas, ip_staged, paths, systems, smi):
+    """Phase 11: the centralized joint planner on the card. Its staged solve
+    is one lane of 14 stages (horizon 15), so every IP trip's KKT solves go
+    through K1 at T = 14."""
+    from dlp_admm_torch.config import (Formulation, ObcaConfig, SolverConfig,
+                                       VehicleConfig)
+    from dlp_admm_torch.models.obca import CentralizedObcaPlanner
+    from dlp_admm_torch.mpc import run_obca
+    out = {}
+    ref = np.load(FIXTURE_CEN)
+    prof = json.loads(str(ref["profile"]))
+
+    def plain(diag, upper, rhs):
+        return thomas.block_thomas_plain(diag, upper, rhs,
+                                         rhs.dtype != torch.float64)
+
+    # -- 11.1 run_obca(CENTRALIZED), float64, against the JAX run ---------
+    name = "centralized float64"
+    res, counts, kkt, replays, wall = drive_centralized(
+        thomas, ip_staged, lambda: run_obca(Formulation.CENTRALIZED))
+    pl = res.extras["planner"]
+    check_counts(name, counts, pl.block_solves, ("wide",))
+    if sorted(kkt) != [(1, 14, 34)]:
+        raise RuntimeError(f"{name}: KKT shapes {sorted(kkt)}, expected "
+                           f"[(1, 14, 34)]")
+    systems[name] = kkt
+    paths[name] = counts
+    its = np.asarray(res.metrics.iter_history)
+    n = prof["steps"]
+    if res.states.shape != (n + 1, 2, 5) or not np.all(
+            np.isfinite(res.states)):
+        raise RuntimeError(f"{name}: states {res.states.shape} not finite "
+                           f"or not {(n + 1, 2, 5)}")
+    err = np.abs(res.states[1:] - ref["states"][1:]).max(axis=(1, 2))
+    strict = int(ref["chaotic_from"])
+    # a solve converged where its final KKT error is under ip_tol (1e-6)
+    row = dict(iterations=its.tolist(),
+               jax_iterations=ref["iterations"].tolist(),
+               max_state_err_per_step=err.tolist(), strict_steps=strict,
+               converged=int(np.sum(np.asarray(
+                   res.metrics.extras["kkt"]) < pl.scfg.ip_tol)),
+               jax_converged=int(ref["converged"].sum()))
+    log(f"{name} vs JAX: " + json.dumps(row))
+    if not np.array_equal(its[:strict], ref["iterations"][:strict]):
+        raise RuntimeError(f"{name}: IP iterations differ from JAX before "
+                           f"step {strict}")
+    if not err[:strict].max() <= STATE_TOL:
+        raise RuntimeError(f"{name}: states {err[:strict].max():.3e} from "
+                           f"JAX before step {strict}")
+    steps = res.metrics.step_times
+    nums = dict(row, wall_s=wall, wall_per_step_s=wall / n,
+                step_wall_s=steps, ip_trips=int(its.sum()),
+                ip_trips_per_step=float(its.mean()), graph_replays=replays,
+                launches=counts, block_solves=pl.block_solves,
+                kkt_shapes=sorted(kkt), nvidia_smi=smi,
+                reserved_gib=torch.cuda.memory_reserved() / 2**30)
+    log(f"{name}: {n} steps, wall {wall:.3f} s ({wall / n:.4f} s a step), "
+        f"{int(its.sum())} IP trips ({float(its.mean()):.2f} a step), "
+        f"{replays} graph replays, K1 {counts}")
+    out["float64"] = nums
+
+    # -- 11.2 3 vehicles (K1 at (1, 14, 66)); 4 are past the kernel -------
+    v4 = np.load(FIXTURE_CEN_V4)
+    v4prof = json.loads(str(v4["profile"]))
+    name = "centralized V=3 float64"
+
+    def solve3():
+        pl3 = CentralizedObcaPlanner(
+            ObcaConfig(**v4prof["ocfg"], num_veh=3), VehicleConfig(),
+            SolverConfig(ip_iters=v4prof["ip_iters"]["3"]), device=DEVICE)
+        return pl3, pl3.solve_at(pl3.refs[:, 0, :], 0)
+
+    (pl3, (xs, _, _, sol)), counts, kkt, replays, wall = drive_centralized(
+        thomas, ip_staged, solve3)
+    check_counts(name, counts, pl3.block_solves, ("wide",))
+    (_, (xs_p, _, _, sol_p)), plain_counts, _, _, wall_p = \
+        drive_centralized(thomas, ip_staged, solve3, solve=plain)
+    if sum(plain_counts.values()):
+        raise RuntimeError(f"{name}: the plain run launched {plain_counts}")
+    systems[name] = kkt
+    paths[name] = counts
+    xs, xs_p = xs.cpu().numpy(), xs_p.cpu().numpy()
+    row = dict(kkt_shapes=sorted(kkt), iterations=int(sol.iterations),
+               plain_iterations=int(sol_p.iterations),
+               jax_iterations=int(v4["v3_iterations"]),
+               converged=bool(sol.converged),
+               max_state_err_vs_plain=float(np.abs(xs - xs_p).max()),
+               max_state_err_vs_jax=float(np.abs(xs - v4["v3_states"]).max()),
+               wall_s=wall, plain_wall_s=wall_p, launches=counts,
+               graph_replays=replays)
+    log(f"{name}: " + json.dumps(row))
+    if not (row["converged"] and bool(sol_p.converged)
+            and row["max_state_err_vs_plain"] <= STATE_TOL
+            and row["max_state_err_vs_jax"] <= STATE_TOL):
+        raise RuntimeError(f"{name}: differs from the plain-version run or "
+                           f"from JAX: {row}")
+    out["v3"] = row
+    # 4 vehicles: KKT blocks 108 wide, past the wide kernel's float64 range
+    pl4 = CentralizedObcaPlanner(
+        ObcaConfig(**v4prof["ocfg"], num_veh=4), VehicleConfig(),
+        SolverConfig(ip_iters=v4prof["ip_iters"]["4"]), device=DEVICE)
+    thomas.reset_counts()
+    try:
+        pl4.solve_at(pl4.refs[:, 0, :], 0)
+    except ValueError as e:
+        if f"B={CEN_V4_WIDTH}" not in str(e) or thomas.launches:
+            raise
+        out["v4"] = dict(refused=str(e))
+        log(f"centralized V=4 float64: refused, {e}")
+    else:
+        raise RuntimeError("centralized V=4: a KKT width past the wide "
+                           "kernel's range was not refused")
+
+    # -- 11.3 tests/test_parity_oracle.py's gates, centralized side -------
+    name = "centralized oracle float64"
+    o = prof["oracle"]
+    plo = CentralizedObcaPlanner(
+        ObcaConfig(**o["ocfg"]), VehicleConfig(), SolverConfig(**o["scfg"]),
+        warm_mode=o["warm_mode"], device=DEVICE)
+    (states, _, _, _, cvs), counts, kkt, replays, wall = drive_centralized(
+        thomas, ip_staged, lambda: plo.run_scan(o["steps"]))
+    check_counts(name, counts, plo.block_solves, ("wide",))
+    paths[name] = counts
+    nums, gates = oracle_gates(states, cvs, o["ocfg"]["min_dis"])
+    jax_nums, _ = oracle_gates(ref["oracle_states"], ref["oracle_converged"],
+                               o["ocfg"]["min_dis"])
+    row = dict(nums, gates=gates, jax=jax_nums, wall_s=wall,
+               launches=counts, graph_replays=replays,
+               max_state_err_vs_jax=float(np.abs(
+                   states - ref["oracle_states"]).max()))
+    log(f"{name}: " + json.dumps(row))
+    if not all(gates.values()):
+        raise RuntimeError(f"{name} fails the parity oracle's gates: {gates}")
+    out["oracle"] = row
+
+    # -- 11.4 float32, tests/test_obca.py:18-27's tracking gates ----------
+    name = "centralized float32"
+    res, counts, kkt, replays, wall = drive_centralized(
+        thomas, ip_staged, lambda: run_obca(
+            Formulation.CENTRALIZED, n_steps=3, dtype=torch.float32,
+            scfg=SolverConfig(ip_iters=40, ip_tol=1e-4)))
+    pl = res.extras["planner"]
+    check_counts(name, counts, pl.block_solves, ("wide",))
+    systems[name] = kkt
+    paths[name] = counts
+    st = res.states
+    kkts = np.asarray(res.metrics.extras["kkt"])
+    gates = {"converged every step": bool(np.all(kkts < pl.scfg.ip_tol)),
+             "finite states": bool(np.all(np.isfinite(st))),
+             "tracks 20 / 10 m/s within 0.02 m": bool(
+                 np.abs(st[:, 0, 0] - 2.0 * np.arange(4)).max() <= 0.02
+                 and np.abs(st[:, 1, 0] - 20 - np.arange(4)).max() <= 0.02
+                 and np.abs(st[:, :, 1]).max() <= 0.02)}
+    row = dict(iterations=res.metrics.iter_history, kkt=kkts.tolist(),
+               max_state_err_vs_f64_fixture=float(np.abs(
+                   st - ref["states"][:4]).max()),
+               gates=gates, wall_s=wall, launches=counts,
+               graph_replays=replays, kkt_shapes=sorted(kkt))
+    log(f"{name}: " + json.dumps(row))
+    if not all(gates.values()):
+        raise RuntimeError(f"{name} fails the tracking gates: {gates}")
+    out["float32"] = row
+    return out
+
+
+def classic_run(thomas, name, paths, **kw):
+    """``run_pi_admm(**kw)`` on the card between two synchronizes, with the
+    block-Thomas counts set to 0 just before and read just after: the path
+    must launch and capture none. Returns the result and the wall seconds."""
+    from dlp_admm_torch.mpc import run_pi_admm
+    thomas.reset_counts()
+    captured = dict(thomas.captured)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_pi_admm(**kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = dict(thomas.launches_by_kernel)
+    k1_captured = {k: c - captured[k] for k, c in thomas.captured.items()}
+    if any(k1.values()) or any(k1_captured.values()):
+        raise RuntimeError(f"{name} launched block-Thomas kernels: {k1}, "
+                           f"captured {k1_captured}")
+    if res.extras["engine"].device.type != torch.device(DEVICE).type:
+        raise RuntimeError(f"{name} ran on {res.extras['engine'].device}")
+    paths[name] = k1
+    return res, wall
+
+
+def _dual_cfg(kw):
+    from dlp_admm_torch.config import DualStrategy, DualUpdateConfig, WindupMode
+    kw = dict(kw, strategy=DualStrategy[kw["strategy"]],
+              windup=WindupMode[kw["windup"]])
+    return DualUpdateConfig(**kw)
+
+
+def classic_path(thomas, paths, smi, full):
+    """Phase 12: the classic PI-ADMM layout, ``run_pi_admm()``'s default, on
+    the card: the default run against the JAX fixture, the paper's A/B of
+    PI-reciprocal against plain dual ascent, and with ``full`` the sigmoid
+    schedule's safety A/B."""
+    from dlp_admm_torch.config import PiAdmmConfig, SolverConfig
+    out = {}
+    ref = np.load(FIXTURE_CLASSIC)
+    prof = json.loads(str(ref["profile"]))
+    # -- 12.1 run_pi_admm() against the JAX run ----------------------------
+    name = "PI-ADMM classic float64"
+    res, wall = classic_run(thomas, name, paths)
+    its = np.asarray(res.metrics.iter_history)
+    strict = int(ref["chaotic_from"])
+    err = np.abs(res.states - ref["xt"]).max(axis=(1, 2))
+    d = np.linalg.norm(res.states[:, 0, :2] - res.states[:, 1, :2], axis=-1)
+    row = dict(iterations=its.tolist(),
+               jax_iterations=ref["iterations"].tolist(),
+               max_state_err_per_step=err.tolist(), strict_steps=strict,
+               sum_iter_num=int(its.sum()),
+               jax_sum_iter_num=int(ref["iterations"].sum()),
+               min_distance_m=float(d.min()), wall_s=wall,
+               wall_per_step_s=wall / len(its),
+               wall_per_iteration_s=wall / max(int(its.sum()), 1),
+               nvidia_smi=smi)
+    log(f"{name} vs JAX: " + json.dumps(row))
+    if res.states.shape != ref["xt"].shape or not np.all(
+            np.isfinite(res.states)):
+        raise RuntimeError(f"{name}: states {res.states.shape} not finite")
+    if not np.array_equal(its[:strict], ref["iterations"][:strict]):
+        raise RuntimeError(f"{name}: iterations differ from JAX before step "
+                           f"{strict}")
+    if not err[:strict].max() <= STATE_TOL:
+        raise RuntimeError(f"{name}: states {err[:strict].max():.3e} from "
+                           f"JAX before step {strict}")
+    out["default"] = row
+
+    # -- 12.2 the paper's A/B, tests/test_pi_vs_plain.py:43-52 -------------
+    def ab(tag, cfg=None):
+        got = {}
+        for arm in ("pi", "plain"):
+            r, w = classic_run(
+                thomas, f"PI-ADMM classic A/B {tag} {arm}", paths,
+                cfg=cfg, dual_cfg=_dual_cfg(prof[f"{tag}_{arm}"]),
+                scfg=SolverConfig(**prof["ab_solver"]))
+            x = r.states
+            key = f"{tag}_{arm}" if tag == "sig" else f"ab_{arm}"
+            got[arm] = dict(
+                sum_iter_num=int(r.metrics.total_iterations),
+                jax_sum_iter_num=int(ref[f"{key}_iterations"].sum()),
+                min_distance_m=float(np.linalg.norm(
+                    x[:, 0, :2] - x[:, 1, :2], axis=-1).min()),
+                jax_min_distance_m=float(np.linalg.norm(
+                    ref[f"{key}_xt"][:, 0, :2] - ref[f"{key}_xt"][:, 1, :2],
+                    axis=-1).min()),
+                finite=bool(np.all(np.isfinite(x))), wall_s=w)
+        log(f"PI-ADMM classic A/B {tag}: " + json.dumps(got))
+        return got
+
+    got = ab("ab")
+    ok = (got["pi"]["sum_iter_num"] < PI_AB_RATIO
+          * got["plain"]["sum_iter_num"]
+          and all(a["finite"] and a["min_distance_m"] > PI_AB_MIN_DIST
+                  for a in got.values()))
+    out["ab"] = dict(got, gate_passed=ok)
+    if not ok:
+        raise RuntimeError(f"PI-ADMM classic A/B fails test_pi_vs_plain's "
+                           f"gates: {got}")
+    if full:
+        # -- 12.3 --full: the sigmoid schedule's safety A/B ----------------
+        cfg = PiAdmmConfig(**prof["sig_cfg"])
+        got = ab("sig", cfg)
+        ok = (got["plain"]["min_distance_m"] < cfg.dis_thres
+              < got["pi"]["min_distance_m"])
+        out["sig"] = dict(got, gate_passed=ok)
+        if not ok:
+            raise RuntimeError(f"PI-ADMM classic sigmoid A/B fails "
+                               f"test_pi_vs_plain's gates: {got}")
+    return out
+
+
 PHASES = {"warp": ("load", "equilibrate", "eliminate", "refine",
                    "store and product", "back substitution"),
           "wide": ("load and product", "equilibrate", "eliminate", "refine",
@@ -1285,30 +1717,40 @@ def clock_split(thomas, systems):
     return out
 
 
-def kernel_entry(name, real, paths, path, shape):
+def kernel_entry(name, real, paths, path, shape, at_shapes=()):
     """One kernel's line: launches over every driven path, and the error
     against the plain version and the times on the KKT system of ``shape``
     that ``path`` gave it; ``worst_rel_err`` is the largest relative error
     on any path's system (held to RUN_TOL and to the plain version's
-    backward error by :func:`compare`)."""
+    backward error by :func:`compare`). ``at_shapes`` ((path, shape), ...)
+    adds the same numbers at other shapes as sub-records, with the
+    launches of that path."""
     rows = [r for r in real if r["kernel"] == name]
-    at = next(r for r in rows if r["path"] == path
-              and tuple(r["shape"]) == shape)
+
+    def numbers(p, shp):
+        at = next(r for r in rows if r["path"] == p and tuple(r["shape"]) == shp)
+        return dict(
+            max_abs_err=at["max_abs_err"], max_rel_err=at["max_rel_err"],
+            tol=at["tol"], shape=list(shp), dtype=at["dtype"], ms=at["ms"],
+            plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+            bound_us=at["bound_us"], bound_by=at["bound_by"],
+            one_sm_bound_ms=1e-3 * at["sm_bound_us"],
+            library_ms=at["library_ms"], us_per_pivot=at["us_per_pivot"])
+
     launches = sum(c[name] for c in paths.values())
     if launches <= 0:
         raise RuntimeError(f"no driven path launched the {name} kernel")
-    return dict(
-        name=f"block_thomas_{name}", route="cuda",
-        source=f"dlp_admm_torch/csrc/block_thomas_{name}.cu",
-        replaces=REPLACES, launches=launches,
-        launches_by_path={p: c[name] for p, c in paths.items()},
-        max_abs_err=at["max_abs_err"], max_rel_err=at["max_rel_err"],
-        tol=at["tol"], worst_rel_err=max(r["max_rel_err"] for r in rows),
-        shape=list(shape), dtype=at["dtype"], ms=at["ms"],
-        plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
-        bound_us=at["bound_us"], bound_by=at["bound_by"],
-        one_sm_bound_ms=1e-3 * at["sm_bound_us"],
-        library_ms=at["library_ms"], us_per_pivot=at["us_per_pivot"])
+    out = dict(name=f"block_thomas_{name}", route="cuda",
+               source=f"dlp_admm_torch/csrc/block_thomas_{name}.cu",
+               replaces=REPLACES, launches=launches,
+               launches_by_path={p: c[name] for p, c in paths.items()},
+               worst_rel_err=max(r["max_rel_err"] for r in rows),
+               **numbers(path, shape))
+    if at_shapes:
+        out["at_shapes"] = [dict(numbers(p, shp), path=p,
+                                 launches=paths[p][name])
+                            for p, shp in at_shapes]
+    return out
 
 
 def polygon_gap(p, q):

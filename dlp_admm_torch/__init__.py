@@ -8,8 +8,10 @@ module names (``config``, ``scenarios``, ``ops``, ``coordination``,
 in float64 and float32 with the planner modes of its staged and dense
 interior-point solvers (``solvers.ip_staged``, ``solvers.ip``), its
 scenario-batched driver on one device
-(``parallel.consensus_spmd.run_scenario_batch``), and the PI-ADMM pairwise
-engine (``models.pi_admm``). The block-tridiagonal KKT solve of the staged
+(``parallel.consensus_spmd.run_scenario_batch``), the centralized joint
+OBCA planner (``models.obca.CentralizedObcaPlanner``,
+``mpc.run_obca(Formulation.CENTRALIZED)``), and the PI-ADMM engine in its
+classic and pairwise layouts (``models.pi_admm``, ``mpc.run_pi_admm``). The block-tridiagonal KKT solve of the staged
 solver is hand-written CUDA (``csrc/block_thomas_warp.cu``,
 ``csrc/block_thomas_wide.cu``). Its entry points run on the CUDA card
 unless the caller names another device.

@@ -1,21 +1,29 @@
-"""Consensus-ADMM OBCA planner (the flagship), ported to PyTorch.
+"""OBCA planners, ported to PyTorch: the centralized joint NLP and the
+consensus-ADMM decomposition (the flagship).
 
-Port of ``ConsensusObcaPlanner`` in ``dlp_admm_tpu/models/obca.py`` (≙ the
-reference's ``decentralized/optimizer.py`` + ``decentralized_overtaking_ADMM.py``):
-per-vehicle NLPs over (X_i, U_i, lambda, elastic slacks) with augmented-
-Lagrangian coupling to an edge/RSU consensus NLP over Z = (states, lambda),
-and dual ascent (+ saturation) on lambda_bar.
+Port of ``dlp_admm_tpu/models/obca.py``:
 
-By default both NLP families are solved by the staged interior-point
-solver (:mod:`..solvers.ip_staged`): the V local NLPs as one batch of V
-lanes, the edge NLP as one lane whose stages are the horizon steps. Every
-KKT solve of either goes through the block-Thomas CUDA kernel on a CUDA
-device. ``use_staged=False`` solves the locals as dense NLPs and
-``edge_mode="joint"`` / ``"per_step"`` the edge as one dense NLP or one per
-horizon step, all with the dense solver (:mod:`..solvers.ip`), whose KKT
-solves are ``torch.linalg``'s, as they are XLA's in JAX.
+* :class:`CentralizedObcaPlanner` (≙ the reference's
+  ``centralized/optimizer.py`` + ``centralized_overtaking{,_stochastic}.py``):
+  one joint NLP over all vehicles' states, controls and collision duals,
+  solved receding-horizon, by default with the staged solver as one lane
+  whose N-1 stages are the horizon steps;
+* :class:`ConsensusObcaPlanner` (≙ ``decentralized/optimizer.py`` +
+  ``decentralized_overtaking_ADMM.py``): per-vehicle NLPs over (X_i, U_i,
+  lambda, elastic slacks) with augmented-Lagrangian coupling to an edge/RSU
+  consensus NLP over Z = (states, lambda), and dual ascent (+ saturation) on
+  lambda_bar.
 
-The JAX version runs the ADMM loop as a ``lax.while_loop`` on the device;
+In the consensus planner both NLP families are by default solved by the
+staged interior-point solver (:mod:`..solvers.ip_staged`): the V local NLPs
+as one batch of V lanes, the edge NLP as one lane whose stages are the
+horizon steps. Every KKT solve of either goes through the block-Thomas CUDA
+kernel on a CUDA device. ``use_staged=False`` solves the locals as dense
+NLPs and ``edge_mode="joint"`` / ``"per_step"`` the edge as one dense NLP or
+one per horizon step, all with the dense solver (:mod:`..solvers.ip`), whose
+KKT solves are ``torch.linalg``'s, as they are XLA's in JAX.
+
+The JAX version runs the consensus ADMM loop as a ``lax.while_loop`` on the device;
 here it is a Python loop whose one host read per iteration is the ``done``
 flag, and whose carry stays on the planner's device. Collision constraint
 blocks (paper eq. (4)/(5)/(6)):
@@ -46,7 +54,7 @@ from ..coordination.dual_update import DualState, update_dual
 from ..ops.dynamics import bicycle_rhs
 from ..ops.geometry import halfspaces
 from ..ops.pairs import pair_indices
-from ..solvers.ip import NLP, solve_nlp_batch
+from ..solvers.ip import NLP, NLPSolution, solve_nlp, solve_nlp_batch
 from ..solvers.ip_staged import StagedNLP, solve_staged
 
 _TODO_OPTIONS = "ROADMAP.md queue 1, item 'ConsensusObcaPlanner options'"
@@ -96,6 +104,302 @@ def _box_residuals(x_states, u_ctrls, bounds):
         (u_ctrls + hi_u).reshape(-1), (hi_u - u_ctrls).reshape(-1)])
 
 
+def _check_dtype(dtype):
+    if dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"dtype must be float64 or float32, got {dtype}")
+
+
+class _RecedingHorizon:
+    """What both OBCA planners share: a step's reference window and the
+    run's length (``refs``, ``ocfg``, ``vcfg`` are the planner's)."""
+
+    def _ref_window(self, step_idx: int):
+        """refs[:, k:k+N] with the start clamped in bounds, as
+        ``lax.dynamic_slice_in_dim`` clamps it."""
+        n = self.ocfg.horizon
+        start = min(max(int(step_idx), 0), self.refs.shape[1] - n)
+        return self.refs[:, start:start + n]
+
+    def _n_steps(self, n_steps):
+        """The reference's run, ``T / dt - N`` MPC steps, unless given."""
+        total = int(self.vcfg.T / self.vcfg.dt - self.ocfg.horizon)
+        return total if n_steps is None else n_steps
+
+
+# %% centralized joint planner ------------------------------------------------
+
+
+class CentralizedObcaPlanner(_RecedingHorizon):
+    """Joint OBCA NLP over all vehicles, receding horizon (ref
+    ``centralized/optimizer.py:8-194``; horizon 15, R = 0.1 I, Q = I).
+
+    Generalizes the reference's 2-vehicle collision block to all unordered
+    pairs with per-(pair, side) duals. ``use_staged`` (the default) solves
+    the NLP with the staged solver as one lane of ``N - 1`` stages, each
+    holding every step-``k+1`` decision block ``[X (5V) | U (2V) | LAM
+    (8P)]``; its KKT blocks, ``7V + 8P`` wide plus ``5V`` dynamics rows and
+    ``2P`` pairing rows, go through the block-Thomas kernel on a CUDA
+    device. ``use_staged=False`` solves the same problem with the dense
+    solver (``torch.linalg``). ``warm_mode`` ``"reference"`` re-seeds every
+    step from the reference window (the reference's ``initialize()``);
+    ``"previous"`` shifts the previous optimum. ``device`` defaults to the
+    CUDA card (:func:`resolve_device`); ``dtype`` is float64 or float32 (in
+    float32 the staged solver equilibrates every stage solve).
+    """
+
+    def __init__(self, ocfg: ObcaConfig = ObcaConfig(horizon=15),
+                 vcfg: VehicleConfig = VehicleConfig(),
+                 scfg: SolverConfig = SolverConfig(),
+                 refs: Optional[np.ndarray] = None,
+                 r_ctrl: float = 0.1, q_state: float = 1.0,
+                 warm_mode: str = "reference",
+                 use_staged: bool = True,
+                 dtype=torch.float64, device=None):
+        if warm_mode not in ("reference", "previous"):
+            raise ValueError(f"unknown warm_mode {warm_mode!r}")
+        _check_dtype(dtype)
+        self.ocfg, self.vcfg, self.scfg = ocfg, vcfg, scfg
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.r_ctrl, self.q_state = r_ctrl, q_state
+        self.use_staged = bool(use_staged)
+        self.warm_mode = warm_mode
+        if refs is None:
+            refs = scenarios.ref_traj_overtake(vcfg, ocfg.num_veh)
+        self.refs = torch.as_tensor(np.asarray(refs), dtype=dtype,
+                                    device=self.device)    # [V, T/dt+1, 5]
+        idx_i, idx_j = pair_indices(ocfg.num_veh)
+        self.idx_i = torch.as_tensor(idx_i, dtype=torch.long,
+                                     device=self.device)
+        self.idx_j = torch.as_tensor(idx_j, dtype=torch.long,
+                                     device=self.device)
+        v, n, p = ocfg.num_veh, ocfg.horizon, len(idx_i)
+        self.n_pairs = p
+        self._sizes = dict(x=v * 5 * n, u=v * 2 * (n - 1),
+                           lam=p * 2 * 4 * (n - 1))
+        self._box = _box_bounds(ocfg, vcfg, dtype=dtype, device=self.device)
+        self._nlp = NLP(self._objective, self._ce, self._ci)
+        self._staged_nlp = StagedNLP(self._stage_f, self._stage_ce_link,
+                                     self._stage_ce, self._stage_ci)
+        # block-Thomas solves made by this planner's staged solves
+        self.block_solves = 0
+
+    # x layout: [X (V,N,5) | U (V,N-1,2) | LAM (P,2,N-1,4)]
+    def _split(self, x):
+        v, n, p = self.ocfg.num_veh, self.ocfg.horizon, self.n_pairs
+        s = self._sizes
+        xs = x[:s["x"]].reshape(v, n, 5)
+        us = x[s["x"]:s["x"] + s["u"]].reshape(v, n - 1, 2)
+        lam = x[s["x"] + s["u"]:].reshape(p, 2, n - 1, 4)
+        return xs, us, lam
+
+    def _objective(self, x, p):
+        """Tracking + effort (ref ``generate_object`` ``optimizer.py:104-115``)."""
+        xs, us, _ = self._split(x)
+        err = xs[:, 1:, :] - p["ref_win"][:, 1:, :]
+        return (self.r_ctrl * torch.sum(us ** 2)
+                + self.q_state * torch.sum(err ** 2))
+
+    def _halfspaces_at(self, xs):
+        """[V, N-1, 4, 2], [V, N-1, 4] halfspaces of steps 1..N-1
+        (ref ``generate_constrain`` ``optimizer.py:168-181``)."""
+        return halfspaces(xs[:, 1:, :], self.vcfg,
+                          self.ocfg.use_delay_tightening)
+
+    def _ce(self, x, p):
+        """Init + dynamics per vehicle, then (4b) ``A_i^T l_pi + A_j^T l_pj
+        = 0`` per pair per step."""
+        xs, us, lam = self._split(x)
+        dyn = torch.cat([_dyn_residual(xs[i], us[i], p["init_state"][i],
+                                       self.vcfg)
+                         for i in range(self.ocfg.num_veh)])
+        a_mat, _ = self._halfspaces_at(xs)
+        at_li = torch.einsum('ptij,pti->ptj', a_mat[self.idx_i], lam[:, 0])
+        at_lj = torch.einsum('ptij,pti->ptj', a_mat[self.idx_j], lam[:, 1])
+        return torch.cat([dyn, (at_li + at_lj).reshape(-1)])
+
+    def _ci(self, x, p):
+        """(4a) separation, (4c) dual norm (one side per pair suffices given
+        4b, as ref ``optimizer.py:192-194``), lambda >= 0, boxes."""
+        xs, us, lam = self._split(x)
+        a_mat, b = self._halfspaces_at(xs)
+        bl_i = torch.einsum('pti,pti->pt', b[self.idx_i], lam[:, 0])
+        bl_j = torch.einsum('pti,pti->pt', b[self.idx_j], lam[:, 1])
+        sep = -bl_i - bl_j - self.ocfg.min_dis
+        at_li = torch.einsum('ptij,pti->ptj', a_mat[self.idx_i], lam[:, 0])
+        nrm = 1.0 - torch.sum(at_li ** 2, dim=-1)
+        boxes = torch.cat([_box_residuals(xs[i], us[i], self._box)
+                           for i in range(self.ocfg.num_veh)])
+        return torch.cat([sep.reshape(-1), nrm.reshape(-1), lam.reshape(-1),
+                          boxes])
+
+    # -- staged (block-tridiagonal) form ----------------------------------
+    # Stage k = 0..N-2 holds every step-(k+1) decision block:
+    # w_k = [X[:, k+1, :] (V*5) | U[:, k, :] (V*2) | LAM[:, :, k, :] (P*8)].
+    # Dynamics couple adjacent stages; the OBCA rows live within a stage.
+
+    def _stage_split(self, w):
+        v = self.ocfg.num_veh
+        xs = w[:5 * v].reshape(v, 5)
+        us = w[5 * v:7 * v].reshape(v, 2)
+        lam = w[7 * v:].reshape(self.n_pairs, 2, 4)
+        return xs, us, lam
+
+    def _stage_params(self, init_state, ref_win):
+        """Per-stage parameters of the one lane, ``[1, N-1, ...]``."""
+        t = self.ocfg.horizon - 1
+        first = torch.zeros((1, t), dtype=self.dtype, device=self.device)
+        first[0, 0] = 1.0
+        return dict(first=first,
+                    ref=ref_win[:, 1:, :].movedim(1, 0)[None],   # [1, T, V, 5]
+                    init=init_state.expand((1, t) + init_state.shape))
+
+    def _stage_f(self, w, pk):
+        xs, us, _ = self._stage_split(w)
+        return (self.r_ctrl * torch.sum(us ** 2)
+                + self.q_state * torch.sum((xs - pk["ref"]) ** 2))
+
+    def _stage_ce_link(self, w_prev, w, pk):
+        xs, us, _ = self._stage_split(w)
+        xp = torch.where(pk["first"] > 0, pk["init"],
+                         self._stage_split(w_prev)[0])
+        f = bicycle_rhs(xp, us, self.vcfg)
+        return (xs - (xp + self.vcfg.dt * f)).reshape(-1)
+
+    def _stage_ce(self, w, pk):
+        xs, _, lam = self._stage_split(w)
+        a_mat, _ = halfspaces(xs, self.vcfg, self.ocfg.use_delay_tightening)
+        at_li = torch.einsum('pij,pi->pj', a_mat[self.idx_i], lam[:, 0])
+        at_lj = torch.einsum('pij,pi->pj', a_mat[self.idx_j], lam[:, 1])
+        return (at_li + at_lj).reshape(-1)
+
+    def _stage_ci(self, w, pk):
+        xs, us, lam = self._stage_split(w)
+        a_mat, b = halfspaces(xs, self.vcfg, self.ocfg.use_delay_tightening)
+        bl_i = torch.einsum('pi,pi->p', b[self.idx_i], lam[:, 0])
+        bl_j = torch.einsum('pi,pi->p', b[self.idx_j], lam[:, 1])
+        sep = -bl_i - bl_j - self.ocfg.min_dis
+        at_li = torch.einsum('pij,pi->pj', a_mat[self.idx_i], lam[:, 0])
+        nrm = 1.0 - torch.sum(at_li ** 2, dim=-1)
+        boxes = _box_residuals(xs, us, self._box)
+        return torch.cat([sep, nrm, lam.reshape(-1), boxes])
+
+    def _to_staged(self, x):
+        """Dense decision vector -> staged ``[N-1, b]`` (same variables)."""
+        xs, us, lam = self._split(x)
+        t = self.ocfg.horizon - 1
+        return torch.cat([xs[:, 1:].movedim(1, 0).reshape(t, -1),
+                          us.movedim(1, 0).reshape(t, -1),
+                          lam.movedim(2, 0).reshape(t, -1)], dim=1)
+
+    def _from_staged(self, w, init_state):
+        t = self.ocfg.horizon - 1
+        v, p = self.ocfg.num_veh, self.n_pairs
+        xs_t = w[:, :5 * v].reshape(t, v, 5)
+        us_t = w[:, 5 * v:7 * v].reshape(t, v, 2)
+        lam_t = w[:, 7 * v:].reshape(t, p, 2, 4)
+        xs = torch.cat([init_state[None], xs_t]).movedim(0, 1)   # [V, N, 5]
+        return xs, us_t.movedim(0, 1), lam_t.movedim(0, 2)
+
+    def _flat(self, xs, us, lam):
+        return torch.cat([xs.reshape(-1), us.reshape(-1), lam.reshape(-1)])
+
+    def _warm_start(self, ref_win):
+        """States = the reference window, u = 0, lambda = 10 (ref x0)."""
+        kw = dict(dtype=self.dtype, device=self.device)
+        return torch.cat([ref_win.reshape(-1),
+                          torch.zeros(self._sizes["u"], **kw),
+                          torch.full((self._sizes["lam"],), 10.0, **kw)])
+
+    def _shift_warm(self, x_prev):
+        """Shift the previous optimum one step (drop t=0, duplicate the
+        tail), the warm start of ``warm_mode='previous'``; the shifted tail
+        state is advanced through the dynamics, so the warm start stays
+        dynamics-feasible end to end."""
+        xs, us, lam = self._split(x_prev)
+
+        def shift(a, ax):
+            n = a.shape[ax]
+            return torch.cat([a.narrow(ax, 1, n - 1), a.narrow(ax, n - 1, 1)],
+                             dim=ax)
+        xs_s, us_s = shift(xs, 1), shift(us, 1)
+        tail = xs_s[:, -2] + self.vcfg.dt * bicycle_rhs(
+            xs_s[:, -2], us_s[:, -1], self.vcfg)
+        xs_s = torch.cat([xs_s[:, :-1], tail[:, None]], dim=1)
+        return self._flat(xs_s, us_s, shift(lam, 2))
+
+    def _solve(self, init_state, step_idx: int, x_warm):
+        """One joint solve from ``x_warm``; returns ``(xs [V, N, 5],
+        us [V, N-1, 2], lam [P, 2, N-1, 4], NLPSolution)`` on the planner's
+        device (the staged form's solution carries no multipliers)."""
+        ref_win = self._ref_window(step_idx)
+        if self.use_staged:
+            ssol = solve_staged(self._staged_nlp, self._to_staged(x_warm)[None],
+                                self._stage_params(init_state, ref_win),
+                                self.scfg)
+            self.block_solves += ssol.block_solves
+            xs, us, lam = self._from_staged(ssol.w[0], init_state)
+            empty = torch.zeros((0,), dtype=self.dtype, device=self.device)
+            sol = NLPSolution(x=self._flat(xs, us, lam), y=empty, z=empty,
+                              s=empty, kkt_error=ssol.kkt_error[0],
+                              iterations=ssol.iterations[0],
+                              converged=ssol.converged[0])
+            return xs, us, lam, sol
+        sol = solve_nlp(self._nlp, x_warm,
+                        dict(init_state=init_state, ref_win=ref_win),
+                        self.scfg)
+        return (*self._split(sol.x), sol)
+
+    def solve_at(self, init_state, step_idx: int):
+        """One joint solve with the reference warm start (the unit the MPC
+        loop repeats)."""
+        if not torch.is_tensor(init_state):
+            init_state = torch.as_tensor(np.array(init_state))
+        init_state = init_state.to(dtype=self.dtype, device=self.device)
+        return self._solve(init_state, step_idx,
+                           self._warm_start(self._ref_window(step_idx)))
+
+    def run_scan(self, n_steps: Optional[int] = None):
+        """Whole MPC run with the (state, warm-start) carry on the planner's
+        device; returns host arrays ``(states [n+1, V, 5], ctrls [n, V, 2],
+        kkts [n], iters [n], convs [n])``, as the JAX ``run_scan``."""
+        states, ctrls, infos = self.run(n_steps)
+        return (states, ctrls,
+                np.asarray([i["kkt"] for i in infos]),
+                np.asarray([i["iters"] for i in infos], dtype=np.int32),
+                np.asarray([i["converged"] for i in infos], dtype=bool))
+
+    def run(self, n_steps: Optional[int] = None, step_timer=None):
+        """MPC loop (ref ``centralized_overtaking.py:21-56``): apply the
+        optimizer's own next state as the plant update. Returns ``(states
+        [n+1, V, 5], controls [n, V, 2], infos)``, one dict of ``kkt``,
+        ``iters``, ``converged`` per step. ``step_timer``, a context-manager
+        factory such as ``RunMetrics.step_timer``, wraps each step (its host
+        reads included)."""
+        timer = step_timer or contextlib.nullcontext
+        n_steps = self._n_steps(n_steps)
+        init_state = self.refs[:, 0, :]
+        x_warm = self._warm_start(self._ref_window(0))
+        states, controls, infos = [init_state.cpu().numpy()], [], []
+        for t in range(n_steps):
+            with timer():
+                xs, us, lam, sol = self._solve(init_state, t, x_warm)
+                if self.warm_mode == "previous":
+                    x_warm = self._shift_warm(sol.x)
+                else:
+                    x_warm = self._warm_start(self._ref_window(t + 1))
+                init_state = xs[:, 1, :]
+                states.append(init_state.cpu().numpy())
+            controls.append(us[:, 0, :].cpu().numpy())
+            infos.append(dict(kkt=float(sol.kkt_error),
+                              iters=int(sol.iterations),
+                              converged=bool(sol.converged)))
+        return np.stack(states), np.stack(controls), infos
+
+
+# %% consensus-ADMM planner (the flagship) -------------------------------------
+
+
 class BarState(NamedTuple):
     """The vehicle<->RSU exchange state (ref ``mid_state``
     ``decentralized/optimizer.py:351-373``); leading vehicle axis.
@@ -120,7 +424,7 @@ _LAMB_IJ_TABLE = np.array(
       [0.986] * 4, [0.871] * 4, [0.755] * 4]])
 
 
-class ConsensusObcaPlanner:
+class ConsensusObcaPlanner(_RecedingHorizon):
     """Consensus-ADMM OBCA planner, generalized to N vehicles with the
     JAX version's neighbour-slot layout (slot k of vehicle i holds its OBCA
     duals against neighbour ``nbr[i, k]``; for V = 2, F = 9 as in the
@@ -166,8 +470,7 @@ class ConsensusObcaPlanner:
             if unported:
                 raise NotImplementedError(
                     f"{name} is not ported yet ({_TODO_OPTIONS})")
-        if dtype not in (torch.float64, torch.float32):
-            raise TypeError(f"dtype must be float64 or float32, got {dtype}")
+        _check_dtype(dtype)
         self.ocfg, self.vcfg, self.scfg = ocfg, vcfg, scfg
         self.lamb_ij_mode = lamb_ij_mode
         self.local_warm_mode = local_warm_mode
@@ -627,13 +930,6 @@ class ConsensusObcaPlanner:
 
     # -- one MPC step -----------------------------------------------------
 
-    def _ref_window(self, step_idx: int):
-        """refs[:, k:k+N] with the start clamped in bounds, as
-        ``lax.dynamic_slice_in_dim`` clamps it."""
-        n = self.ocfg.horizon
-        start = min(max(int(step_idx), 0), self.refs.shape[1] - n)
-        return self.refs[:, start:start + n]
-
     def _prox_tau(self, it: int) -> float:
         """Annealed local prox weight of ADMM iteration ``it``, grown and
         clamped in the planner's dtype as the JAX planner does."""
@@ -837,10 +1133,6 @@ class ConsensusObcaPlanner:
             bs = bs._replace(lamb_bar=self.lamb_bar_decay * bs.lamb_bar)
         return (next_state, self.shift_bar_state(bs), it, c["primal"],
                 c["dual"], converged_flag, c["nlp_ok"], c["nlp_kkt"], c["gap"])
-
-    def _n_steps(self, n_steps):
-        total = int(self.vcfg.T / self.vcfg.dt - self.ocfg.horizon)
-        return total if n_steps is None else n_steps
 
     def run_scan(self, n_steps: Optional[int] = None,
                  return_health: bool = False):

@@ -1,11 +1,19 @@
-"""Unicycle PI-ADMM planner, pairwise (gated) layout, ported to PyTorch.
+"""Unicycle PI-ADMM planner, classic (stacked) and pairwise (gated) layouts,
+ported to PyTorch.
 
-Port of ``PiAdmmEngine(layout="pairwise")`` in
-``dlp_admm_tpu/models/pi_admm.py`` (≙ the reference's ``casadi/main.py``):
-per-ordered-pair consensus cells ``hat_pos[i, j]`` and duals, collision-pair
-gating via ``edge_mat``, per-pair edge subproblems solved by sequential
-convexification (linearize the nonlinear edge rollout, solve a slack-form
-hinge QP), and the PI dual controller with anti-windup and adaptive rho.
+Port of ``PiAdmmEngine`` in ``dlp_admm_tpu/models/pi_admm.py``:
+
+* **classic** (the default, ≙ ``casadi_old_PI_ADMM/main.py``): one stacked
+  consensus state per vehicle, one joint edge QP over all vehicles with a
+  hinge block per unordered pair, the PI dual update on the prediction
+  rollout, and a stop test that can also ask for clearance;
+* **pairwise** (≙ ``casadi/main.py``): per-ordered-pair consensus cells
+  ``hat_pos[i, j]`` and duals, collision-pair gating via ``edge_mat``,
+  per-pair edge subproblems.
+
+Both solve their edge problems by sequential convexification (linearize the
+nonlinear edge rollout, solve a slack-form hinge QP) and update the duals
+with the PI controller with anti-windup and adaptive rho.
 
 Every function carries a leading **lane** axis ``S`` (one scenario per lane)
 where the JAX code is written for one lane and ``vmap``-ed: an iteration
@@ -17,10 +25,11 @@ over that lane's own axes.
 
 Two drivers, as in JAX:
 
-* the per-step driver (:meth:`PiAdmmEngine.run`, :meth:`run_scan`): one MPC
-  step at a time, the ADMM loop a Python loop that reads ``done`` on the
-  host once per iteration;
-* the fused whole-run driver (:meth:`PiAdmmEngine.run_fused_batch`): one
+* the per-step driver (:meth:`PiAdmmEngine.run`, :meth:`run_scan`), either
+  layout: one MPC step at a time, the ADMM loop a Python loop that reads
+  ``done`` on the host once per iteration;
+* the fused whole-run driver (:meth:`PiAdmmEngine.run_fused_batch`),
+  pairwise layout only: one
   loop of "trips" over the whole run of every lane, a lane finishing its
   step inline and going on with its next. A trip has static shapes and no
   host read; on a CUDA device it is captured once as a CUDA graph and
@@ -28,8 +37,7 @@ Two drivers, as in JAX:
   chunk of trips. A lane past its last step is frozen (every write masked),
   so the records do not depend on the chunk size.
 
-The layout ``classic`` (``_mpc_step_classic``, ``_solve_joint_edge_qp``)
-and checkpointing are not ported yet and raise ``NotImplementedError``.
+Checkpointing is not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,14 +49,13 @@ import torch
 from .. import scenarios
 from ..config import DualUpdateConfig, PiAdmmConfig, SolverConfig
 from ..coordination.dual_update import DualState, update_dual
-from ..coordination.residuals import per_edge_residuals
+from ..coordination.residuals import (min_pair_distance, per_edge_residuals,
+                                      stacked_residuals)
 from ..ops.dynamics import unicycle_rollout_edge, unicycle_rollout_local
 from ..ops.pairs import num_pairs, pair_indices
 from ..solvers.qp import _mv, solve_qp
 from .obca import resolve_device
 
-_TODO_CLASSIC = ("ROADMAP.md queue 1, item 13 ('models/pi_admm.py, classic "
-                 "layout')")
 _TODO_UTILS = "ROADMAP.md queue 1, item 16 ('mpc/driver.py and the utilities')"
 
 
@@ -293,6 +300,113 @@ def _solve_pair_edge_qp(xt_pair, spd_pair, pos_old_pair, dual_pair, last_dis,
     return u_lin, torch.stack([ex, ey], dim=-2), conv, y_warm
 
 
+def joint_edge_qp_m(cfg: PiAdmmConfig) -> int:
+    """Constraint-row count of the joint (all-vehicle) edge QP."""
+    v, h, p = cfg.num_veh, cfg.horizon, num_pairs(cfg.num_veh)
+    return v * h + v * (h - 1) + p * h + p * h
+
+
+def _joint_edge_statics(cfg: PiAdmmConfig, dtype,
+                        device="cpu") -> _EdgeStatics:
+    """The joint edge QP's constant rows: box on each u (VH), rate per
+    vehicle (V(H-1)), t >= 0 (PH), and their bounds (``eye_h`` holds the
+    hinge rows' ``[PH, PH]`` identity)."""
+    v, h, p = cfg.num_veh, cfg.horizon, num_pairs(cfg.num_veh)
+    kw = dict(dtype=dtype, device=device)
+    a_box = np.concatenate([np.eye(v * h), np.zeros((v * h, p * h))], axis=1)
+    a_rate = np.concatenate([np.kron(np.eye(v), _first_diff(h)),
+                             np.zeros((v * (h - 1), p * h))], axis=1)
+    a_tpos = np.concatenate([np.zeros((p * h, v * h)), np.eye(p * h)], axis=1)
+    lo_c = torch.cat([torch.full((v * h,), -cfg.u_max, **kw),
+                      torch.full((v * (h - 1),), -cfg.du_max, **kw),
+                      torch.zeros(p * h, **kw)])
+    hi_c = torch.cat([torch.full((v * h,), cfg.u_max, **kw),
+                      torch.full((v * (h - 1),), cfg.du_max, **kw),
+                      torch.full((p * h,), float("inf"), **kw)])
+    return _EdgeStatics(
+        torch.as_tensor(np.concatenate([a_box, a_rate, a_tpos]), **kw),
+        lo_c, hi_c, torch.eye(p * h, **kw))
+
+
+def _solve_joint_edge_qp(xt, spd, pos_old, dual, last_dis, u0,
+                         cfg: PiAdmmConfig, scfg: SolverConfig,
+                         n_sqp: int = 2, y0=None, prox_tau: float = 0.0,
+                         statics: Optional[_EdgeStatics] = None):
+    """Edge subproblems over ALL vehicles jointly, one per lane: the stacked
+    formulation of the old reference line
+    (``casadi_old_PI_ADMM/PI_ADMM_class.py:141-179``; MATLAB
+    ``cost_function_edge.m:15-35``), by sequential convexification.
+
+    Decision per lane ``w = [u_1..u_V (V H) | t_1..t_P (P H)]``; objective
+    ``2 beta sum(t) + Pcost ||u||^2 + rho/2 sum_v ||pos_old_v - pos_e_v(u)
+    + dual_v||^2`` (+ the proximal ``tau/2 ||u - u_lin||^2``); constraints
+    box/rate per vehicle, ``t >= 0``, ``t_p + dis_temp_p(u_i, u_j) >=
+    thres^2`` per unordered pair (a static loop over the pairs, as in JAX).
+
+    ``xt [S, V, 3]``, ``spd [S, V]``, ``pos_old / dual [S, V, 2(H+1)]``,
+    ``last_dis [S, P, 2]``, ``u0 [S, V, H]``, ``y0 [S, m]``. Returns
+    ``(u_opt [S, V, H], hat [S, V, 2, H+1], converged [S], y_out [S, m])``.
+    """
+    v, h, p = cfg.num_veh, cfg.horizon, num_pairs(cfg.num_veh)
+    idx_i, idx_j = pair_indices(v)
+    bsz = xt.shape[0]
+    dtype, dev = pos_old.dtype, pos_old.device
+    n = v * h + p * h
+    rho = cfg.rho
+    st = (statics if statics is not None
+          else _joint_edge_statics(cfg, dtype, dev))
+    m_c = st.a_const.shape[0]
+    a_const = st.a_const.expand(bsz, m_c, n)
+    lo_c, hi_c = st.lo_c.expand(bsz, m_c), st.hi_c.expand(bsz, m_c)
+    eye_vh = torch.eye(v * h, dtype=dtype, device=dev)
+    if y0 is None:
+        y0 = torch.zeros((bsz, joint_edge_qp_m(cfg)), dtype=dtype, device=dev)
+
+    u_lin, y_warm = u0, y0
+    conv = torch.zeros(bsz, dtype=torch.bool, device=dev)
+    for _ in range(n_sqp):
+        pose0, be = _edge_affine(xt, spd, u_lin, cfg.dt, cfg.wheel_base)
+        # affine pos_e_v(u_v) = c_v + Be_v u_v
+        c_aff = pose0 - _mv(be, u_lin)                         # [S, V, 2(H+1)]
+
+        p_mat = torch.zeros((bsz, n, n), dtype=dtype, device=dev)
+        p_mat[:, :v * h, :v * h] = (2.0 * cfg.p_cost + prox_tau) * eye_vh
+        btb = rho * be.mT @ be                                 # [S, V, H, H]
+        for i in range(v):
+            p_mat[:, i * h:(i + 1) * h, i * h:(i + 1) * h] += btb[:, i]
+        d_al = pos_old + dual - c_aff                          # [S, V, 2(H+1)]
+        q_u = (-rho * _mv(be.mT, d_al)
+               - prox_tau * u_lin).reshape(bsz, v * h)
+        q = torch.cat([q_u, torch.full((bsz, p * h), 2.0 * cfg.beta,
+                                       dtype=dtype, device=dev)], dim=-1)
+
+        # hinge rows per pair: t_p + dis_temp_p(u_i, u_j) >= thres^2
+        rows, consts = [], []
+        for pi_ in range(p):
+            i, j = int(idx_i[pi_]), int(idx_j[pi_])
+            const, g_i, g_j = _hinge_rows(be[:, i], be[:, j], c_aff[:, i],
+                                          c_aff[:, j], last_dis[:, pi_], h)
+            row_u = torch.zeros((bsz, h, v * h), dtype=dtype, device=dev)
+            row_u[:, :, i * h:(i + 1) * h] = -g_i
+            row_u[:, :, j * h:(j + 1) * h] = g_j
+            rows.append(torch.cat([row_u, st.eye_h[pi_ * h:(pi_ + 1) * h]
+                                   .expand(bsz, h, p * h)], dim=-1))
+            consts.append(const)
+        a_mat = torch.cat([a_const] + rows, dim=-2)
+        lo = torch.cat([lo_c, cfg.dis_thres ** 2 - torch.cat(consts, dim=-1)],
+                       dim=-1)
+        hi = torch.cat([hi_c, torch.full((bsz, p * h), float("inf"),
+                                         dtype=dtype, device=dev)], dim=-1)
+        w0 = torch.cat([u_lin.reshape(bsz, v * h),
+                        torch.zeros((bsz, p * h), dtype=dtype, device=dev)],
+                       dim=-1)
+        sol = solve_qp(p_mat, q, a_mat, lo, hi, scfg, x0=w0, y0=y_warm)
+        u_lin = sol.x[:, :v * h].reshape(bsz, v, h)
+        y_warm, conv = sol.y, sol.converged
+    ex, ey, _ = unicycle_rollout_edge(xt, u_lin, spd, cfg.dt, cfg.wheel_base)
+    return u_lin, torch.stack([ex, ey], dim=-2), conv, y_warm
+
+
 # %% engine -------------------------------------------------------------------
 
 class StepRecord(NamedTuple):
@@ -355,9 +469,11 @@ def _select(mask, a, b):
 
 
 class PiAdmmEngine:
-    """Receding-horizon PI-ADMM planner, pairwise layout (per-pair cells with
-    proximity gating). Runs on ``device``: the CUDA card unless the caller
-    names another (``device="cpu"``); without a card the default raises."""
+    """Receding-horizon PI-ADMM planner: ``layout="classic"`` (stacked
+    consensus per vehicle, one joint edge QP) or ``"pairwise"`` (per-pair
+    cells with proximity gating). Runs on ``device``: the CUDA card unless
+    the caller names another (``device="cpu"``); without a card the default
+    raises."""
 
     def __init__(self, cfg: PiAdmmConfig = PiAdmmConfig(),
                  dual_cfg: DualUpdateConfig = DualUpdateConfig(),
@@ -373,9 +489,8 @@ class PiAdmmEngine:
                  dtype=torch.float64, device=None):
         self.device = resolve_device(device)
         assert layout in ("classic", "pairwise")
-        if layout != "pairwise":
-            raise NotImplementedError(
-                f"layout={layout!r} is not ported yet ({_TODO_CLASSIC})")
+        if carry_admm_state and layout != "pairwise":
+            raise ValueError("carry_admm_state requires layout='pairwise'")
         self.cfg = cfg
         self.dual_cfg = dual_cfg
         self.solver_cfg = solver_cfg
@@ -395,7 +510,8 @@ class PiAdmmEngine:
         self.refs = torch.as_tensor(np.asarray(refs), **kw)    # [V, 2, N]
         self.spd = torch.as_tensor(cfg.speeds, **kw)
         self.statics = _local_statics(cfg, dtype, self.device)
-        self.edge_statics = _edge_statics(cfg, dtype, self.device)
+        self.edge_statics = (_edge_statics if layout == "pairwise" else
+                             _joint_edge_statics)(cfg, dtype, self.device)
         self.n_pairs = num_pairs(cfg.num_veh)
         idx_i, idx_j = pair_indices(cfg.num_veh)
         self.idx_i = torch.as_tensor(idx_i, device=self.device)
@@ -667,6 +783,82 @@ class PiAdmmEngine:
         xt_next, u, rec = self._finish_step(xt, c)
         return xt_next, u, rec, self._admm_out(c)
 
+    def _mpc_step_classic(self, xt, u_warm, step_idx: int):
+        """One MPC step of every lane in the classic layout: local QPs with
+        one AL term per vehicle, one joint edge QP, the PI dual update on
+        the prediction rollout, the stacked residuals and the stop test
+        (with clearance where ``stop_needs_clearance``); the loop reads the
+        flags on the host once per iteration, a lane that stopped keeps its
+        carry. Returns ``(xt_next, u, StepRecord)``."""
+        cfg = self.cfg
+        s_lanes, v, h1 = xt.shape[0], cfg.num_veh, cfg.horizon + 1
+        kw = dict(dtype=self.dtype, device=self.device)
+        k = torch.full((s_lanes,), step_idx, dtype=torch.long,
+                       device=self.device)
+        ref_flat = self._ref_window(k)
+        seed = self._seed(xt)
+        affines = self._local_affines(xt)
+        spd = self._spd_lanes(xt)
+        last_dis = seed[:, self.idx_j] - seed[:, self.idx_i]  # [S, P, 2]
+        al_w = torch.ones((s_lanes, v, 1), **kw)
+        zero_cell = torch.zeros((s_lanes, v, 2, h1), **kw)
+
+        def flat(cells):                 # [S, V, 2, H+1] -> [S, V, 2(H+1)]
+            return torch.cat([cells[..., 0, :], cells[..., 1, :]], dim=-1)
+
+        c = dict(u=u_warm, pos=zero_cell, hat=zero_cell,
+                 hat_u=torch.zeros((s_lanes, v, cfg.horizon), **kw),
+                 last_hat=zero_cell, dual=zero_cell, sum_err=zero_cell,
+                 diff_val=zero_cell, rho=torch.full((s_lanes,), cfg.rho, **kw),
+                 ey=torch.zeros((s_lanes, joint_edge_qp_m(cfg)), **kw),
+                 it=torch.zeros(s_lanes, dtype=torch.int32,
+                                device=self.device),
+                 done=torch.zeros(s_lanes, dtype=torch.bool,
+                                  device=self.device),
+                 r=torch.zeros(s_lanes, **kw), s=torch.zeros(s_lanes, **kw))
+
+        def body(c):
+            # vehicle side
+            u, pos = self._local_solve(affines, c["u"], ref_flat,
+                                       flat(c["hat"])[:, :, None],
+                                       flat(c["dual"])[:, :, None], al_w,
+                                       c["rho"])
+            # edge side: ONE joint QP over all vehicles with a hinge per
+            # pair; for V = 2 it is exactly the single-pair problem
+            hat_u, hat, _, ey = _solve_joint_edge_qp(
+                xt, spd, flat(pos), flat(c["dual"]), last_dis, c["hat_u"],
+                cfg, self.solver_cfg, self.n_sqp, y0=c["ey"],
+                prox_tau=self.edge_prox_tau, statics=self.edge_statics)
+            # dual update on the prediction rollout (ref main.py:128-151)
+            px, py, _ = self._plant_rollout(xt, u)
+            d_min = min_pair_distance(px, py, v)              # [S]
+            dual = update_dual(
+                DualState(c["dual"], c["sum_err"], c["diff_val"], c["rho"]),
+                pos - hat, d_min[:, None, None, None], self.dual_cfg,
+                lane_dims=1)
+            rho = dual.rho.expand(s_lanes)
+            r, s = stacked_residuals(pos, hat, c["last_hat"], rho)
+            # clearance of the applied step, min over all pairs
+            clearance = torch.amin(torch.sqrt(
+                (px[:, self.idx_i, 1] - px[:, self.idx_j, 1]) ** 2
+                + (py[:, self.idx_i, 1] - py[:, self.idx_j, 1]) ** 2), dim=-1)
+            ok = torch.logical_and(r <= cfg.eps_pri, s <= cfg.eps_dual)
+            if cfg.stop_needs_clearance:
+                ok = torch.logical_and(ok, clearance > cfg.dis_thres)
+            return dict(u=u, pos=pos, hat=hat, hat_u=hat_u, last_hat=hat,
+                        dual=dual.dual, sum_err=dual.sum_err,
+                        diff_val=dual.diff_val, rho=rho, ey=ey,
+                        it=c["it"] + 1, done=ok, r=r, s=s)
+
+        going = torch.ones(s_lanes, dtype=torch.bool, device=self.device)
+        while True:
+            c = _select(going, body(c), c)
+            going = torch.logical_and(torch.logical_not(c["done"]),
+                                      c["it"] < cfg.iter_num)
+            if not bool(going.any()):        # one host read per iteration
+                break
+        return self._finish_step(xt, c)
+
     def _finish_step(self, xt, c):
         """Apply the first control and advance the plant
         (ref ``main.py:168-174``)."""
@@ -700,9 +892,12 @@ class PiAdmmEngine:
         for step in range(n_steps):
             # shift-warm-start (ref main.py:85: init_u = [u[1:], u[-1]])
             u = torch.cat([u[..., 1:], u[..., -1:]], dim=-1)
-            admm0 = (self.shift_admm_carry(admm) if self.carry_admm_state
-                     else None)
-            xt, u, rec, admm = self._mpc_step_pairwise(xt, u, step, admm0)
+            if self.layout == "classic":
+                xt, u, rec = self._mpc_step_classic(xt, u, step)
+            else:
+                admm0 = (self.shift_admm_carry(admm) if self.carry_admm_state
+                         else None)
+                xt, u, rec, admm = self._mpc_step_pairwise(xt, u, step, admm0)
             records.append(rec)
         return StepRecord(*(torch.stack([getattr(r, f)[0] for r in records])
                             .cpu().numpy() for f in StepRecord._fields))
@@ -863,6 +1058,8 @@ class PiAdmmEngine:
         executed (a multiple of ``chunk``, at least ``max_lane(sum_k
         iterations)``) are left in ``self.fused_trips``.
         """
+        if self.layout != "pairwise":
+            raise ValueError("run_fused_batch requires layout='pairwise'")
         out, self.fused_trips = self._trips(
             lambda c: self._fused_trip(c, n_steps, iter_budget),
             self._fused_carry0(xts, us, n_steps), n_steps, chunk)

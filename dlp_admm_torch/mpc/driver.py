@@ -1,10 +1,12 @@
 """Receding-horizon driver (port of ``dlp_admm_tpu/mpc/driver.py``).
 
-So far the consensus-ADMM OBCA flagship
-(``run_obca(Formulation.CONSENSUS, ...)``) and the pairwise PI-ADMM engine
-(``run_pi_admm(layout="pairwise", ...)``) run here, with the JAX driver's
-defaults. The other formulations and layouts and plotting are still to be
-ported (ROADMAP queue 1).
+So far the centralized joint OBCA planner
+(``run_obca(Formulation.CENTRALIZED, ...)``), the consensus-ADMM OBCA
+flagship (``run_obca(Formulation.CONSENSUS, ...)``) and both layouts of the
+PI-ADMM engine (``run_pi_admm(layout="classic" | "pairwise", ...)``) run
+here, with the JAX driver's defaults. The bilevel, tightening and ALADIN
+formulations, the ALADIN layout and plotting are still to be ported
+(ROADMAP queue 1, items 14-16).
 """
 from __future__ import annotations
 
@@ -34,30 +36,43 @@ def run_obca(formulation: Formulation = Formulation.CONSENSUS,
              plot_path: Optional[str] = None,
              device=None, dtype=torch.float64,
              **planner_kwargs) -> RunResult:
-    """Run the consensus-ADMM OBCA flagship end to end on ``device``
-    (≙ ``decentralized_overtaking_ADMM.py``): the CUDA card unless the
-    caller names another device, e.g. ``device="cpu"``; without a card the
-    default raises. ``dtype`` is float64 or float32.
+    """Run an OBCA-line formulation end to end on ``device``: the CUDA
+    card unless the caller names another device, e.g. ``device="cpu"``;
+    without a card the default raises. ``dtype`` is float64 or float32.
 
-    ``metrics.step_times`` holds one wall time per MPC step; ``extras``
-    holds ``converge_flags``, the planner's per-step ``residuals`` rows
-    (``ConsensusObcaPlanner.run``) and the ``planner`` itself (whose
-    ``block_solves`` counts the block-tridiagonal KKT solves of the run and
-    whose ``carry`` is the final MPC carry).
+    ``CENTRALIZED`` ≙ ``centralized_overtaking.py`` (horizon 15, ``min_dis``
+    1.0, 35 MPC steps by default): ``metrics`` logs each step's IP
+    iterations and ``kkt``; ``extras`` holds the applied ``controls``.
+    ``CONSENSUS`` ≙ ``decentralized_overtaking_ADMM.py``: ``metrics`` logs
+    each step's ADMM iterations and residuals; ``extras`` holds
+    ``converge_flags`` and the planner's per-step ``residuals`` rows
+    (``ConsensusObcaPlanner.run``). Both: ``metrics.step_times`` holds one
+    wall time per MPC step, and ``extras["planner"]`` the planner, whose
+    ``block_solves`` counts the block-tridiagonal KKT solves of the run.
     """
-    from ..models.obca import ConsensusObcaPlanner
+    from ..models.obca import CentralizedObcaPlanner, ConsensusObcaPlanner
 
-    if formulation is not Formulation.CONSENSUS:
+    if formulation not in (Formulation.CENTRALIZED, Formulation.CONSENSUS):
         raise NotImplementedError(
-            f"{formulation} is not ported yet (ROADMAP.md queue 1)")
+            f"{formulation} is not ported yet (ROADMAP.md queue 1, "
+            f"{_TODO_FORMULATION[formulation]})")
     if plot_path is not None:
         raise NotImplementedError(
             "plotting is not ported yet (ROADMAP.md queue 1, item "
             "'mpc/driver.py and the utilities')")
     vcfg = vcfg or VehicleConfig()
+    metrics = RunMetrics()
+    if formulation is Formulation.CENTRALIZED:
+        ocfg = ocfg or ObcaConfig(horizon=15, min_dis=1.0)
+        pl = CentralizedObcaPlanner(ocfg, vcfg, scfg, dtype=dtype,
+                                    device=device, **planner_kwargs)
+        states, ctrls, infos = pl.run(n_steps, step_timer=metrics.step_timer)
+        for t, info in enumerate(infos):
+            metrics.log_step(t, info["iters"], kkt=info["kkt"])
+        return RunResult(states=states, metrics=metrics,
+                         extras=dict(controls=ctrls, planner=pl))
     ocfg = ocfg or ObcaConfig(horizon=8, min_dis=0.1, rho=100.0,
                               max_admm_iters=15)
-    metrics = RunMetrics()
     pl = ConsensusObcaPlanner(ocfg, vcfg, scfg, dtype=dtype, device=device,
                               **planner_kwargs)
     states, iters, residuals, flags = pl.run(n_steps,
@@ -70,9 +85,13 @@ def run_obca(formulation: Formulation = Formulation.CONSENSUS,
                                  planner=pl))
 
 
+_TODO_FORMULATION = {
+    Formulation.BILEVEL: "item 14 ('models/bilevel.py')",
+    Formulation.TIGHTENING: "item 14 ('models/bilevel.py')",
+    Formulation.TIGHTENING_SLACK: "item 14 ('models/bilevel.py')",
+    Formulation.ALADIN: "item 15 ('models/aladin.py')",
+}
 _TODO_LAYOUT = {
-    "classic": "ROADMAP.md queue 1, item 13 ('models/pi_admm.py, classic "
-               "layout')",
     "aladin": "ROADMAP.md queue 1, item 15 ('models/aladin.py')",
 }
 
@@ -86,9 +105,10 @@ def run_pi_admm(cfg: Optional[PiAdmmConfig] = None,
                 plot_path: Optional[str] = None,
                 device=None, dtype=torch.float64,
                 **engine_kwargs) -> RunResult:
-    """Run the unicycle PI-ADMM planner (``pairwise`` ≙ ``casadi/main.py``)
-    one MPC step at a time on ``device`` (the CUDA card unless the caller
-    names another; without a card the default raises).
+    """Run the unicycle PI-ADMM planner (``classic`` ≙
+    ``casadi_old_PI_ADMM/main.py``, ``pairwise`` ≙ ``casadi/main.py``) one
+    MPC step at a time on ``device`` (the CUDA card unless the caller names
+    another; without a card the default raises).
 
     ``states`` is ``[T, V, 3]`` (the state after each step); ``metrics``
     holds the per-step iterations, rho and dual range; ``extras`` the

@@ -3,16 +3,20 @@
 * :func:`bicycle_rhs` — 5-state kinematic bicycle of the OBCA line,
   ref ``Distributed_planner/decentralized/optimizer.py:61-82``
   (``local_build_model``);
+* :func:`bicycle_rhs_coupled` — the centralized variant with
+  ``theta_dot = v/(lr+lf) * cos(beta) * tan(steer)``,
+  ref ``Distributed_planner/centralized/optimizer.py:68-70``;
+* :func:`euler_rollout` / :func:`rk4_rollout` — forward-Euler and RK4
+  rollouts of any right-hand side;
 * :func:`unicycle_rollout_local` / :func:`unicycle_rollout_edge` — 3-state
   linearized unicycle rollouts of the PI-ADMM line, ref
   ``casadi/PI_ADMM_class.py:45-105``;
 * :func:`unicycle_rollout_exact` — the exact ``tan(u)`` unicycle plant, ref
   ``dynamic_update_simulation.m``.
 
-Every function carries an arbitrary batch prefix. The edge and exact
-rollouts are scans over the horizon, written as Python loops over its H
-steps on batched tensors. The coupled bicycle variant and the Euler/RK4
-rollouts are still to be ported (ROADMAP queue 1).
+Every function carries an arbitrary batch prefix. The rollouts are scans
+over the horizon, written as Python loops over its H steps on batched
+tensors.
 """
 from __future__ import annotations
 
@@ -40,6 +44,51 @@ def bicycle_rhs(state: torch.Tensor, control: torch.Tensor,
         v / cfg.lr * torch.sin(beta),
         steer_rate,
     ], dim=-1)
+
+
+def bicycle_rhs_coupled(state: torch.Tensor, control: torch.Tensor,
+                        cfg: VehicleConfig = VehicleConfig()) -> torch.Tensor:
+    """Centralized-planner variant of the heading rate (ref
+    ``centralized/optimizer.py:68-69``): ``theta_dot = v/(lr+lf) *
+    cos(beta) * tan(steer)``; the other rows are :func:`bicycle_rhs`'s."""
+    v, theta, steer = state[..., 2], state[..., 3], state[..., 4]
+    a, steer_rate = control[..., 0], control[..., 1]
+    beta = torch.atan(cfg.lr * torch.tan(steer) / (cfg.lr + cfg.lf))
+    return torch.stack([
+        v * torch.cos(theta + beta),
+        v * torch.sin(theta + beta),
+        a,
+        v / (cfg.lr + cfg.lf) * torch.cos(beta) * torch.tan(steer),
+        steer_rate,
+    ], dim=-1)
+
+
+def euler_rollout(rhs, x0: torch.Tensor, us: torch.Tensor,
+                  dt: float) -> torch.Tensor:
+    """Forward-Euler rollout ``x[k+1] = x[k] + dt * rhs(x[k], u[k])`` (the
+    equality-constraint discretization of ``decentralized/optimizer.py:
+    92-100``). ``us [H, ...]``; returns the trajectory with ``x0``,
+    ``[H+1, ...]``."""
+    xs = [x0]
+    for k in range(us.shape[0]):
+        xs.append(xs[-1] + dt * rhs(xs[-1], us[k]))
+    return torch.stack(xs)
+
+
+def rk4_rollout(rhs, x0: torch.Tensor, us: torch.Tensor,
+                dt: float) -> torch.Tensor:
+    """Classic RK4 rollout with zero-order-hold controls (the integrator of
+    the ALADIN optimal-control notebooks); shapes as
+    :func:`euler_rollout`."""
+    xs = [x0]
+    for k in range(us.shape[0]):
+        x, u = xs[-1], us[k]
+        k1 = rhs(x, u)
+        k2 = rhs(x + 0.5 * dt * k1, u)
+        k3 = rhs(x + 0.5 * dt * k2, u)
+        k4 = rhs(x + dt * k3, u)
+        xs.append(x + dt / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4))
+    return torch.stack(xs)
 
 
 # 3-state linearized unicycle (PI-ADMM line). State = (x, y, theta),

@@ -164,6 +164,50 @@ def test_bicycle_rhs():
                                     jcfg.VehicleConfig())), **TOL)
 
 
+def test_bicycle_rhs_coupled():
+    """The centralized variant (tests/test_dynamics.py:42-54's quantity)
+    against JAX, and equal to the plain bicycle within rounding."""
+    rng = np.random.default_rng(6)
+    st, u = _states(6), rng.normal(size=(3, 7, 2))
+    got = tdyn.bicycle_rhs_coupled(torch.as_tensor(st), torch.as_tensor(u))
+    np.testing.assert_allclose(
+        _np(got), np.asarray(jdyn.bicycle_rhs_coupled(jnp.asarray(st),
+                                                      jnp.asarray(u))), **TOL)
+    np.testing.assert_allclose(
+        _np(got), _np(tdyn.bicycle_rhs(torch.as_tensor(st),
+                                       torch.as_tensor(u))),
+        rtol=1e-7, atol=1e-9)
+
+
+@pytest.mark.parametrize("rollout", ["euler_rollout", "rk4_rollout"])
+def test_rollouts_match_jax(rollout):
+    """Euler and RK4 rollouts of the bicycle over 12 steps on a batch of
+    starts (tests/test_dynamics.py:32-40), ``us [H, ...]`` time-major."""
+    rng = np.random.default_rng(7)
+    x0, us = _states(7, (3,)), rng.uniform(-1, 1, size=(12, 3, 2))
+    got = getattr(tdyn, rollout)(tdyn.bicycle_rhs, torch.as_tensor(x0),
+                                 torch.as_tensor(us), 0.1)
+    want = getattr(jdyn, rollout)(jdyn.bicycle_rhs, jnp.asarray(x0),
+                                  jnp.asarray(us), 0.1)
+    assert got.shape == (13, 3, 5)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
+def test_rk4_more_accurate_than_euler():
+    """tests/test_dynamics.py:172-190 on the port: circular motion, RK4
+    beats Euler against the exact circle."""
+    def rhs(x, u):
+        return torch.stack([-x[..., 1], x[..., 0]], dim=-1)
+
+    x0, us, dt = torch.tensor([1.0, 0.0], dtype=F64), torch.zeros(50, 1), 0.1
+    t = dt * np.arange(51)
+    exact = np.stack([np.cos(t), np.sin(t)], axis=-1)
+    err_eu = np.abs(_np(tdyn.euler_rollout(rhs, x0, us, dt)) - exact).max()
+    err_rk = np.abs(_np(tdyn.rk4_rollout(rhs, x0, us, dt)) - exact).max()
+    assert err_rk < err_eu / 100
+    assert err_rk < 1e-5
+
+
 @pytest.mark.parametrize("num_veh", [2, 3, 5, 16])
 def test_pair_indices(num_veh):
     for a, b in zip(tpairs.pair_indices(num_veh),

@@ -1,6 +1,7 @@
 """The block-Thomas CUDA kernels against their plain PyTorch version, on a
 card: the warp kernel (B <= 32) and the wide kernel (above, and forced onto
-the narrow shapes), plain and equilibrated.
+the narrow shapes), plain and equilibrated, at 7 and at 14 stages; and the
+planners that run them, graphed on the card against the CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs where only the port is installed:
@@ -22,8 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (SHAPES, VARIANTS, WIDE_SHAPES, equilibrated_max,
-                        make_system)
+from chip_smoke import (SHAPES, T14_SHAPES, VARIANTS, WIDE_SHAPES,
+                        equilibrated_max, make_system)
 from dlp_admm_torch.config import ObcaConfig, SolverConfig
 from dlp_admm_torch.models.obca import ConsensusObcaPlanner
 from dlp_admm_torch.solvers import ip_staged, thomas
@@ -76,6 +77,68 @@ def test_kernel_matches_plain(cuda, shape, kind, equilibrate, dtype):
     assert bool(torch.isfinite(got).all())
     rel = float((got - want).abs().max() / want.abs().max())
     assert rel < TOL[dtype], rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("kind,equilibrate", VARIANTS,
+                         ids=[f"{k}{'-eq' if e else ''}" for k, e in VARIANTS])
+@pytest.mark.parametrize("shape", T14_SHAPES, ids=_shape_id)
+def test_kernel_matches_plain_at_fourteen_stages(cuda, shape, kind,
+                                                 equilibrate, dtype):
+    """The centralized planner's recursion length, T = 14: the warp
+    kernel's 32-wide build keeps 14 stages of X_k | y_k in shared memory,
+    the wide kernel back-substitutes over 14 stages."""
+    d, u, r = _system(9, shape, kind, dtype, cuda)
+    name = thomas.kernel_plan(*shape, dtype, equilibrate)["kernel"]
+    before = thomas.launches_by_kernel[name]
+    got = thomas.block_thomas_solve(d, u, r, equilibrate)
+    assert thomas.launches_by_kernel[name] == before + 1
+    want = thomas.block_thomas_plain(d, u, r, equilibrate)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < TOL[dtype], rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_centralized_four_vehicle_width_is_refused(cuda, dtype):
+    """The 4-vehicle centralized KKT blocks (108 wide) are past the wide
+    kernel's range in the variant the staged solver asks for."""
+    d, u, r = _system(9, (1, 14, 108), "kkt_saddle", dtype, cuda)
+    total = thomas.launches
+    with pytest.raises(ValueError, match="B <= "):
+        thomas.block_thomas_solve(d, u, r, dtype != torch.float64)
+    assert thomas.launches == total
+
+
+@pytest.mark.cuda
+def test_centralized_solve_on_the_card_matches_cpu(cuda):
+    """One centralized ``solve_at`` (2 vehicles, horizon 15: K1 at
+    (1, 14, 34), the IP trip a replayed CUDA graph) on the card equals the
+    same solve on the CPU (1e-9, equal trips), and a second call on the card
+    gives the same bits."""
+    from dlp_admm_torch.models.obca import CentralizedObcaPlanner
+
+    def solve(device):
+        pl = CentralizedObcaPlanner(ObcaConfig(horizon=15, min_dis=1.0),
+                                    device=device)
+        return pl, pl.solve_at(pl.refs[:, 0, :], 3)
+
+    thomas.reset_counts()
+    pl, (xs, us, lam, sol) = solve(cuda)
+    torch.cuda.synchronize()
+    assert thomas.launches == pl.block_solves > 0
+    assert thomas.launches_by_kernel["wide"] == thomas.launches
+    _, (xs2, _, _, sol2) = solve(cuda)
+    assert torch.equal(sol.x, sol2.x) and torch.equal(xs, xs2)
+    _, (_, _, _, want) = solve("cpu")
+    assert int(sol.iterations) == int(want.iterations)
+    assert bool(sol.converged) and bool(want.converged)
+    torch.testing.assert_close(sol.x.cpu(), want.x, rtol=0, atol=1e-9)
 
 
 @pytest.mark.cuda

@@ -283,7 +283,7 @@ def test_other_dtypes_raise(dtype):
 
 def test_run_obca_rejects_unported_formulations():
     with pytest.raises(NotImplementedError):
-        t_run_obca(tcfg.Formulation.CENTRALIZED, n_steps=1)
+        t_run_obca(tcfg.Formulation.BILEVEL, n_steps=1)
 
 
 # -- float32 -----------------------------------------------------------------

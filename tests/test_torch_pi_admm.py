@@ -419,7 +419,8 @@ def test_bench_quality_on_the_port(case):
 
 def test_default_device_is_the_card_and_nothing_falls_back():
     """Without ``device=`` the engine and ``run_pi_admm`` run on the CUDA
-    card and raise where there is none; the classic layout is not ported."""
+    card and raise where there is none; with ``device="cpu"`` their default
+    layout, the classic one, runs."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default does not raise")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -428,10 +429,12 @@ def test_default_device_is_the_card_and_nothing_falls_back():
         tpi.PiAdmmEngine()
     with pytest.raises(RuntimeError, match="CUDA"):
         run_pi_admm(layout="pairwise", n_steps=1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpi.PiAdmmEngine(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_pi_admm(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_pi_admm(n_steps=1)
+    assert tpi.PiAdmmEngine(device="cpu").layout == "classic"
+    res = run_pi_admm(device="cpu", n_steps=2)
+    assert res.states.shape == (2, 2, 3) and np.all(np.isfinite(res.states))
+    assert res.extras["engine"].layout == "classic"
     res = run_pi_admm(layout="pairwise", n_steps=2, device="cpu",
                       xt0=np.array([[-3.0, 0.0, 0.0], [0.0, 6.0, -np.pi / 2]]))
     assert res.states.shape == (2, 2, 3) and np.all(np.isfinite(res.states))

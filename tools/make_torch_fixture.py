@@ -52,6 +52,34 @@ on the CPU through ``ConsensusObcaPlanner.run_scan(return_health=True)``, all
   its configuration). ``tests/test_torch_consensus_spmd.py`` holds the port
   to it and checks one case against JAX run live.
 
+* ``classic``: the classic PI-ADMM layout, ``run_pi_admm()``'s defaults
+  (2 vehicles crossing, horizon 5, all 45 MPC steps, PI-reciprocal dual
+  update with back-calculation and adaptive rho, ``SolverConfig()``) through
+  ``PiAdmmEngine(layout="classic").run``; ``chaotic_from``, the first step
+  at which the same run with its start moved by 1e-12 (``chaos_seeds``)
+  leaves it by more than 1e-6 or takes other iteration counts; the two
+  A/Bs of ``tests/test_pi_vs_plain.py`` (``ab_*``: PI-reciprocal against
+  plain dual ascent at ``qp_iters=120``; ``sig_*``: the sigmoid schedule
+  against saturated plain ascent at the MATLAB file's operating point);
+  and the joint edge QP (``_solve_joint_edge_qp``) at 2 and 3 vehicles on
+  numpy-seeded inputs (``qp_<V>_in_*``, ``qp_<V>_out_*``), saved as
+  ``tests/data/pi_admm_classic_ref.npz``;
+* ``centralized``: ``run_obca(Formulation.CENTRALIZED)``'s defaults (the
+  joint NLP of 2 overtaking vehicles, horizon 15, ``min_dis`` 1.0, staged
+  IP with ``ip_iters=40``, reference warm start, 35 MPC steps) through
+  ``CentralizedObcaPlanner.run`` (``states``, ``controls``, ``iterations``,
+  ``kkt``, ``converged``), ``chaotic_from`` as above with the references
+  moved by 1e-12, ``solve_at`` at the steps ``solve_steps`` from the run's
+  states in the staged (``staged_*``) and at step 0 in the dense form
+  (``dense_*``), and the centralized side of
+  ``tests/test_parity_oracle.py``'s conflict case (``oracle_*``: ``min_dis``
+  0.5, ``warm_mode="previous"``, 30 steps), saved as
+  ``tests/data/obca_centralized_ref.npz``;
+* ``centralized_v4``: one staged ``solve_at`` of the joint NLP at step 0
+  with 3 and with 4 vehicles (``v3_*``, ``v4_*``; ``ip_iters`` 80 and 150,
+  the trips JAX needs there), saved as
+  ``tests/data/obca_centralized_v4_ref.npz``.
+
 Each OBCA file holds
 
     states [43, 2, 5], iterations [42], primal [42], dual [42],
@@ -85,8 +113,13 @@ capped steps, converged fraction and minimum distance).
 With ``--profile batch`` the noise goes on the 16 starts, and the run prints
 per (lane, step) its largest state distance from the committed fixture.
 
+With ``--profile classic`` or ``centralized`` the noise goes on the start
+(the references, for ``centralized``), and the run prints per step its
+largest state distance from the committed fixture.
+
 Usage: python tools/make_torch_fixture.py
-           [--profile f64|f32|v4|pi_admm|pi_admm_f32|batch|spmd]
+           [--profile f64|f32|v4|pi_admm|pi_admm_f32|batch|spmd|classic|
+                      centralized|centralized_v4]
            [--steps N] [--out PATH] [--noise EPS --seed N]
 """
 import argparse
@@ -182,6 +215,34 @@ SPMD_CASES = {
 }
 SPMD_CARRIED = "two_vehicle_reference_problem"
 
+# the classic PI-ADMM layout: run_pi_admm()'s defaults, the A/Bs of
+# tests/test_pi_vs_plain.py and the joint edge QP cases of
+# tests/test_pi_admm.py::TestJointEdgeQp (its solver budget)
+CLASSIC = dict(
+    chaos_noise=1e-12, chaos_seeds=(1, 2), chaos_tol=1e-6,
+    ab_solver=dict(qp_iters=120, qp_tol=1e-6),
+    ab_pi=dict(strategy="PI_RECIPROCAL", windup="SAT_BACKCALC",
+               adaptive_rho=True),
+    ab_plain=dict(strategy="PLAIN", windup="NONE", adaptive_rho=False),
+    sig_cfg=dict(horizon=8, dis_thres=2.0, beta=1000.0, p_norm=5.0, rho=3.5,
+                 eps_pri=2.0, eps_dual=2.0),
+    sig_plain=dict(strategy="PLAIN", windup="SAT", windup_sat=30.0,
+                   adaptive_rho=False),
+    sig_pi=dict(strategy="PI_SIGMOID", windup="SAT_BACKCALC",
+                windup_sat=30.0, adaptive_rho=False),
+    qp_solver=dict(qp_iters=200, qp_tol=1e-9), qp_seed=5)
+# run_obca(Formulation.CENTRALIZED)'s defaults (dlp_admm_tpu/mpc/driver.py:
+# 63-70) and the centralized side of tests/test_parity_oracle.py:100-140
+CENTRALIZED = dict(
+    ocfg=dict(horizon=15, min_dis=1.0), steps=35, solve_steps=(0, 3),
+    chaos_noise=1e-12, chaos_seeds=(1, 2), chaos_tol=1e-6,
+    oracle=dict(ocfg=dict(horizon=15, min_dis=0.5, rho=100.0,
+                          max_admm_iters=50),
+                scfg=dict(ip_iters=40, ip_tol=1e-6), warm_mode="previous",
+                steps=30))
+CENTRALIZED_V4 = dict(ocfg=dict(horizon=15, min_dis=1.0),
+                      ip_iters={3: 80, 4: 150})
+
 
 def default_out(name):
     if name in PI_ADMM_LANES:
@@ -191,6 +252,11 @@ def default_out(name):
     if name == "spmd":
         return os.path.join(ROOT, "tests", "data",
                             "consensus_spmd_cases_ref.npz")
+    if name == "classic":
+        return os.path.join(ROOT, "tests", "data", "pi_admm_classic_ref.npz")
+    if name.startswith("centralized"):
+        return os.path.join(ROOT, "tests", "data",
+                            f"obca_{name}_ref.npz")
     stem = {"v4": "v4_f64", "batch": "batch_f64"}.get(name, name)
     return os.path.join(ROOT, "tests", "data",
                         f"consensus_obca_{stem}_ref.npz")
@@ -483,10 +549,241 @@ def write_batch(out, commit, noise=0.0, seed=0):
         gap_median=float(np.median(gaps)), commit=commit)))
 
 
+def _parting(states, its, ref_states, ref_its, tol, n):
+    """The first step at which a run is more than ``tol`` from the
+    reference run or takes other iteration counts (``n`` where never)."""
+    err = np.abs(np.asarray(states) - np.asarray(ref_states)).reshape(
+        len(its), -1).max(axis=1)
+    bad = (err > tol) | (np.asarray(its) != np.asarray(ref_its))
+    return (int(bad.argmax()) if bad.any() else n), err
+
+
+def _dual_cfg(kw):
+    from dlp_admm_tpu.config import DualStrategy, DualUpdateConfig, WindupMode
+    kw = dict(kw)
+    kw["strategy"] = DualStrategy[kw["strategy"]]
+    kw["windup"] = WindupMode[kw["windup"]]
+    return DualUpdateConfig(**kw)
+
+
+def classic_qp_case(v, seed):
+    """Numpy-seeded inputs of one joint edge QP at ``v`` vehicles: the
+    2-vehicle case of ``tests/test_pi_admm.py::TestJointEdgeQp`` and a
+    3-vehicle crossing in the same manner."""
+    from dlp_admm_tpu.config import PiAdmmConfig
+    cfg = PiAdmmConfig(num_veh=v, speeds=(4.0, 8.0, 4.0)[:v])
+    h, p = cfg.horizon, v * (v - 1) // 2
+    rng = np.random.default_rng(seed)
+    xt = np.array([[-1.0, 0.0, 0.1], [0.5, 2.0, -1.4], [2.0, 1.0, 3.0]])[:v]
+    return cfg, dict(xt=xt, spd=np.asarray(cfg.speeds),
+                     pos_old=rng.normal(size=(v, 2 * (h + 1))),
+                     dual=0.1 * rng.normal(size=(v, 2 * (h + 1))),
+                     last_dis=rng.normal(size=(p, 2)),
+                     u0=0.1 * rng.normal(size=(v, h)))
+
+
+def write_classic(out, commit, noise=0.0, seed=0):
+    """The classic layout's default run, its chaotic step, the two A/Bs and
+    the joint edge QP cases. With ``noise``, only the default run from a
+    moved start, printed against the committed fixture."""
+    from dlp_admm_tpu.config import (DualUpdateConfig, PiAdmmConfig,
+                                     SolverConfig)
+    from dlp_admm_tpu.models.pi_admm import (PiAdmmEngine,
+                                             _solve_joint_edge_qp)
+    from dlp_admm_tpu.scenarios import pi_admm_initial_states
+    b = CLASSIC
+    cfg = PiAdmmConfig()
+    xt0 = np.asarray(pi_admm_initial_states(cfg))
+
+    def run(start, cfg=cfg, dual=DualUpdateConfig(), scfg=SolverConfig()):
+        t0 = time.perf_counter()
+        rec = PiAdmmEngine(cfg, dual, scfg, layout="classic").run(xt0=start)
+        return ({k: np.asarray(x) for k, x in rec._asdict().items()},
+                time.perf_counter() - t0)
+
+    n = cfg.n_mpc_steps
+    if noise:
+        ref = np.load(default_out("classic"))
+        rec, secs = run(xt0 + noise * np.random.default_rng(seed).normal(
+            size=xt0.shape))
+        first, err = _parting(rec["xt"], rec["iterations"], ref["xt"],
+                              ref["iterations"], b["chaos_tol"], n)
+        print(json.dumps(dict(
+            profile="classic", noise=noise, seed=seed, seconds=round(secs, 1),
+            iterations=rec["iterations"].tolist(),
+            fixture_iterations=ref["iterations"].tolist(),
+            max_state_dist_per_step=err.tolist(), parts_from=first,
+            commit=commit)))
+        return
+    rec, secs = run(xt0)
+    chaotic = n
+    for sd in b["chaos_seeds"]:
+        moved, _ = run(xt0 + b["chaos_noise"] * np.random.default_rng(
+            sd).normal(size=xt0.shape))
+        chaotic = min(chaotic, _parting(moved["xt"], moved["iterations"],
+                                        rec["xt"], rec["iterations"],
+                                        b["chaos_tol"], n)[0])
+    ab_scfg = SolverConfig(**b["ab_solver"])
+    ab = {name: run(xt0, dual=_dual_cfg(b[f"ab_{name}"]), scfg=ab_scfg)[0]
+          for name in ("pi", "plain")}
+    sig_cfg = PiAdmmConfig(**b["sig_cfg"])
+    sig = {name: run(pi_admm_initial_states(sig_cfg), cfg=sig_cfg,
+                     dual=_dual_cfg(b[f"sig_{name}"]), scfg=ab_scfg)[0]
+           for name in ("pi", "plain")}
+    extra = {}
+    for name, r in list(ab.items()) + [(f"sig_{k}", r)
+                                       for k, r in sig.items()]:
+        key = name if name.startswith("sig") else f"ab_{name}"
+        extra[f"{key}_xt"] = r["xt"]
+        extra[f"{key}_iterations"] = r["iterations"]
+    for v in (2, 3):
+        qcfg, inp = classic_qp_case(v, b["qp_seed"])
+        jnp = jax.numpy
+        outs = _solve_joint_edge_qp(
+            *(jnp.asarray(inp[k]) for k in ("xt", "spd", "pos_old", "dual",
+                                            "last_dis", "u0")),
+            qcfg, SolverConfig(**b["qp_solver"]))
+        extra.update({f"qp_{v}_in_{k}": x for k, x in inp.items()})
+        extra.update({f"qp_{v}_out_{k}": np.asarray(x) for k, x in zip(
+            ("u", "hat", "converged", "y"), outs)})
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(out, xt0=xt0, **rec, chaotic_from=np.asarray(chaotic),
+                        **extra,
+                        profile=np.asarray(json.dumps(b, sort_keys=True)),
+                        commit=np.asarray(commit))
+    d = np.linalg.norm(rec["xt"][:, 0, :2] - rec["xt"][:, 1, :2], axis=-1)
+    print(json.dumps(dict(
+        out=os.path.relpath(out, ROOT), profile="classic",
+        seconds=round(secs, 1), iterations=rec["iterations"].tolist(),
+        sum_iter_num=int(rec["iterations"].sum()), chaotic_from=chaotic,
+        min_distance_m=float(d.min()),
+        ab_sum_iter_num={k: int(r["iterations"].sum()) for k, r in ab.items()},
+        sig_sum_iter_num={k: int(r["iterations"].sum())
+                          for k, r in sig.items()},
+        commit=commit)))
+
+
+def _centralized(prof, refs=None, **kw):
+    from dlp_admm_tpu.config import VehicleConfig
+    from dlp_admm_tpu.models.obca import CentralizedObcaPlanner
+    return CentralizedObcaPlanner(ObcaConfig(**prof["ocfg"]), VehicleConfig(),
+                                  SolverConfig(**prof.get("scfg", {})),
+                                  refs=refs, **kw)
+
+
+def write_centralized(out, commit, noise=0.0, seed=0):
+    """``run_obca(Formulation.CENTRALIZED)``'s run, its chaotic step, staged
+    and dense ``solve_at`` and the parity oracle's centralized run. With
+    ``noise``, only the run with the references moved, printed against the
+    committed fixture."""
+    b = CENTRALIZED
+    pl = _centralized(b)
+    refs = np.asarray(pl.refs)
+
+    def run(r):
+        t0 = time.perf_counter()
+        states, ctrls, infos = _centralized(b, refs=r).run(b["steps"])
+        return (np.asarray(states), np.asarray(ctrls),
+                np.asarray([i["iters"] for i in infos]),
+                np.asarray([i["kkt"] for i in infos]),
+                np.asarray([i["converged"] for i in infos]),
+                time.perf_counter() - t0)
+
+    def moved(sd, eps):
+        return refs + eps * np.random.default_rng(sd).normal(size=refs.shape)
+
+    if noise:
+        ref = np.load(default_out("centralized"))
+        states, _, its, _, _, secs = run(moved(seed, noise))
+        first, err = _parting(states[1:], its, ref["states"][1:],
+                              ref["iterations"], b["chaos_tol"], b["steps"])
+        print(json.dumps(dict(
+            profile="centralized", noise=noise, seed=seed,
+            seconds=round(secs, 1), iterations=its.tolist(),
+            fixture_iterations=ref["iterations"].tolist(),
+            max_state_dist_per_step=err.tolist(), parts_from=first,
+            commit=commit)))
+        return
+    states, ctrls, its, kkts, cvs, secs = run(refs)
+    chaotic = b["steps"]
+    for sd in b["chaos_seeds"]:
+        st2, _, its2, _, _, _ = run(moved(sd, b["chaos_noise"]))
+        chaotic = min(chaotic, _parting(st2[1:], its2, states[1:], its,
+                                        b["chaos_tol"], b["steps"])[0])
+    extra = {}
+    for k in b["solve_steps"]:
+        xs, _, _, sol = pl.solve_at(states[k], k)
+        extra.update({f"staged_{k}_x": np.asarray(sol.x),
+                      f"staged_{k}_iterations": np.asarray(sol.iterations),
+                      f"staged_{k}_kkt": np.asarray(sol.kkt_error),
+                      f"staged_{k}_converged": np.asarray(sol.converged)})
+    xs, _, _, sol = _centralized(b, use_staged=False).solve_at(states[0], 0)
+    extra.update(dense_0_x=np.asarray(sol.x),
+                 dense_0_iterations=np.asarray(sol.iterations),
+                 dense_0_kkt=np.asarray(sol.kkt_error),
+                 dense_0_converged=np.asarray(sol.converged))
+    o = b["oracle"]
+    t0 = time.perf_counter()
+    o_states, _, _, o_its, o_cv = _centralized(
+        o, warm_mode=o["warm_mode"]).run_scan(n_steps=o["steps"])
+    o_secs = time.perf_counter() - t0
+    extra.update(oracle_states=np.asarray(o_states),
+                 oracle_iterations=np.asarray(o_its),
+                 oracle_converged=np.asarray(o_cv))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(out, states=states, controls=ctrls, iterations=its,
+                        kkt=kkts, converged=cvs,
+                        chaotic_from=np.asarray(chaotic), **extra,
+                        profile=np.asarray(json.dumps(b, sort_keys=True)),
+                        commit=np.asarray(commit))
+    p = states[..., :2]
+    print(json.dumps(dict(
+        out=os.path.relpath(out, ROOT), profile="centralized",
+        seconds=round(secs, 1), iterations=its.tolist(),
+        converged=int(cvs.sum()), chaotic_from=chaotic,
+        min_center_distance_m=float(np.linalg.norm(p[:, 0] - p[:, 1],
+                                                   axis=-1).min()),
+        solve_at_iterations={k: int(extra[f"staged_{k}_iterations"])
+                             for k in b["solve_steps"]},
+        dense_iterations=int(extra["dense_0_iterations"]),
+        oracle_seconds=round(o_secs, 1),
+        oracle_converged=int(np.sum(o_cv)), commit=commit)))
+
+
+def write_centralized_v4(out, commit):
+    """One staged ``solve_at`` of the joint NLP at step 0 with 3 and with 4
+    vehicles."""
+    b = CENTRALIZED_V4
+    extra = {}
+    for v, iters in b["ip_iters"].items():
+        pl = _centralized(dict(ocfg=dict(b["ocfg"], num_veh=v),
+                               scfg=dict(ip_iters=iters)))
+        t0 = time.perf_counter()
+        xs, _, _, sol = pl.solve_at(pl.refs[:, 0, :], 0)
+        extra.update({f"v{v}_x": np.asarray(sol.x),
+                      f"v{v}_states": np.asarray(xs),
+                      f"v{v}_iterations": np.asarray(sol.iterations),
+                      f"v{v}_kkt": np.asarray(sol.kkt_error),
+                      f"v{v}_converged": np.asarray(sol.converged),
+                      f"v{v}_seconds": np.asarray(time.perf_counter() - t0)})
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(out, **extra,
+                        profile=np.asarray(json.dumps(
+                            {k: v if k != "ip_iters" else {str(a): c for a, c
+                                                           in v.items()}
+                             for k, v in b.items()}, sort_keys=True)),
+                        commit=np.asarray(commit))
+    print(json.dumps(dict(
+        out=os.path.relpath(out, ROOT), profile="centralized_v4",
+        **{k: (x.tolist() if x.ndim == 0 else None) for k, x in extra.items()
+           if x.ndim == 0}, commit=commit)))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", choices=sorted(PROFILES) + sorted(
-        PI_ADMM_LANES) + ["batch", "spmd"], default="f64")
+        PI_ADMM_LANES) + ["batch", "spmd", "classic", "centralized",
+                          "centralized_v4"], default="f64")
     ap.add_argument("--steps", type=int, default=None,
                     help="MPC steps (default: the whole 42-step run)")
     ap.add_argument("--out", default=None,
@@ -508,6 +805,12 @@ def main():
         return write_batch(args.out, commit, args.noise, args.seed)
     if args.profile == "spmd":
         return write_spmd(args.out, commit)
+    if args.profile == "classic":
+        return write_classic(args.out, commit, args.noise, args.seed)
+    if args.profile == "centralized":
+        return write_centralized(args.out, commit, args.noise, args.seed)
+    if args.profile == "centralized_v4":
+        return write_centralized_v4(args.out, commit)
     if args.profile in PI_ADMM_LANES:
         return write_pi_admm(args.profile, args.out, commit, args.noise,
                              args.seed)

@@ -43,7 +43,8 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
 7. the kernels against their plain version on the KKT blocks those runs
    gave them (by solution and by backward error), timed as in 3, and the
    clock64() split of both kernels' profiling builds on them;
-8. ``--full``: all 42 steps of both profiles. The run fails on the gates
+8. ``--full``: all 42 steps of both profiles (and the whole runs of
+   phases 13 and 14). The run fails on the gates
    that hold whichever branch the chaotic conflict window takes (42 steps,
    finite states, overtake completed, footprints apart by more than
    ``min_dis``, at least 39 of 42 steps under the residual thresholds); the
@@ -110,7 +111,34 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    ``sum_iter_num`` under 0.7 x plain's, both runs finite with a minimum
    distance over 0.8 m; JAX's counts printed beside); no block-Thomas
    kernel launched on this path; ``--full`` adds the sigmoid schedule's
-   safety A/B (``test_pi_vs_plain.py:54``).
+   safety A/B (``test_pi_vs_plain.py:54``);
+13. the fixed-dual family, ``run_obca(Formulation.BILEVEL |
+   TIGHTENING | TIGHTENING_SLACK)`` with the driver's defaults (2 vehicles,
+   horizon 8, ``min_dis`` 1.0, float64), the first 12 MPC steps of each
+   (``--full``: all 42 / 62 / 62), each held
+   against its committed JAX run ``tests/data/bilevel_ref.npz`` (states
+   within 1e-6, per step ``elastic`` within 1e-12 plus 1e-6 and
+   ``dual_kkt`` within 1e-12 plus 1e-4 of its size, up to the step where
+   JAX, its references
+   moved by 1e-12, leaves itself; the rest printed) and gated on
+   ``tests/test_bilevel.py``'s gates (finite states, centre distance
+   > 3.5 m); the 4-vehicle tightening of
+   ``tests/test_multivehicle.py::test_four_vehicle_tightening`` (10 steps,
+   dual solves of 42 lanes) on its gates (lanes within 2 m, each lane's
+   pair > 3.5 m apart) and against the same file; wall per MPC step and the
+   IP trips per step of the local and the dual solves printed; no
+   block-Thomas kernel launched;
+14. ALADIN, ``run_pi_admm(layout="aladin")`` on the crossing of
+   ``tests/test_aladin.py::test_crossing_scenario_collision_free``
+   (``PiAdmmConfig()``, 2 vehicles, horizon 5, ``ip_iters`` 25,
+   ``ip_tol`` 1e-7, float64), its first 22 steps through the conflict
+   onset (``--full``: all 45), against ``tests/data/aladin_ref.npz``
+   (equal ALADIN iterations per step and states within 1e-6 up to JAX's
+   own chaotic step, 22) and on that test's gates (finite, clearance
+   > 1.5 m; with ``--full`` also both crossing legs completed and fewer
+   than 500 iterations in all); ``run_obca(Formulation.ALADIN)``'s 3-step
+   dispatch against the same file; wall per ALADIN iteration and per MPC
+   step printed; no block-Thomas kernel launched.
 
 Every path is driven with the launch counts set to 0 just before and read
 just after. Prints, before the last line, one JSON object with the kernels'
@@ -142,6 +170,8 @@ FIXTURE_CASES = os.path.join(DATA, "consensus_spmd_cases_ref.npz")
 FIXTURE_CEN = os.path.join(DATA, "obca_centralized_ref.npz")
 FIXTURE_CEN_V4 = os.path.join(DATA, "obca_centralized_v4_ref.npz")
 FIXTURE_CLASSIC = os.path.join(DATA, "pi_admm_classic_ref.npz")
+FIXTURE_BILEVEL = os.path.join(DATA, "bilevel_ref.npz")
+FIXTURE_ALADIN = os.path.join(DATA, "aladin_ref.npz")
 SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (256, 7, 19))   # B <= 32
 # the batched driver's edge solves (its locals are (32, 7, 19) above)
 BATCH_SHAPES = ((16, 7, 20),)
@@ -226,6 +256,27 @@ ORACLE_MIN_GAIN_M = 15.0     # overtake gain
 # tests/test_pi_vs_plain.py:43-52: PI-reciprocal below 0.7x plain
 PI_AB_RATIO = 0.7
 PI_AB_MIN_DIST = 0.8
+# the fixed-dual family against its JAX runs, per step (the tolerances of
+# tests/test_torch_bilevel_runs.py): ``elastic`` and ``dual_kkt`` are an IP
+# iterate's slack and residual at exit, so rounding moves them more than
+# the states: JAX itself, its references moved by 1e-12, moves them by up
+# to 2.6e-8 and 3.2e-7 of their size (the 4-vehicle run; the 2-vehicle
+# runs 3e-11 and 1.4e-8), so they are held 40x and 300x above that
+ELASTIC_TOL = (1e-12, 1e-6)             # absolute, relative
+DUAL_KKT_TOL = (1e-12, 1e-4)
+# the steps the default run drives (driver's defaults otherwise; the JAX
+# fixture holds the whole 42 / 62 / 62 steps, which --full runs) and the
+# gates of tests/test_bilevel.py and tests/test_multivehicle.py:90-104
+FIXED_DUAL_SMOKE_STEPS = 12
+FIXED_DUAL_MIN_DIST = 3.5
+V4_LANE_Y = (0.0, 0.0, 6.0, 6.0)
+V4_LANE_TOL_M = 2.0
+# tests/test_aladin.py:142-176's gates on the crossing; the default run
+# drives its first 22 steps (through the conflict onset, up to the step
+# where JAX, its start moved by 1e-12, leaves itself), --full all 45
+ALADIN_MIN_DIST = 1.5
+ALADIN_MAX_TOTAL_ITERS = 500
+ALADIN_SMOKE_STEPS = 22
 DEVICE = "cuda"
 # NVIDIA H100 SXM data sheet: HBM3 rate and the vector (non-tensor-core)
 # peaks; FP64 vector is half the FP32 rate
@@ -764,8 +815,9 @@ def v4_against_jax(thomas, ip_staged, run_obca, Formulation, ref):
 def main():
     ap = argparse.ArgumentParser(description="PyTorch port smoke run on CUDA")
     ap.add_argument("--full", action="store_true",
-                    help="also run all 42 MPC steps of both profiles and "
-                         "the classic PI-ADMM sigmoid A/B")
+                    help="also run all 42 MPC steps of both profiles, "
+                         "the classic PI-ADMM sigmoid A/B, and the whole "
+                         "bilevel, tightening and ALADIN runs")
     ap.add_argument("--full-batch", action="store_true",
                     help="also run bench.py's 16 x 20 scenario batch in "
                          "both profiles")
@@ -904,6 +956,12 @@ def smoke(args, records):
     # -- 12. the classic PI-ADMM layout (run_pi_admm's default) --------
     records["classic"] = classic_path(thomas, paths, smi, args.full)
 
+    # -- 13. the bilevel and tightening planners ------------------------
+    records["fixed_dual"] = fixed_dual_path(thomas, paths, smi, args.full)
+
+    # -- 14. ALADIN -------------------------------------------------------
+    records["aladin"] = aladin_path(thomas, paths, smi, args.full)
+
     # -- 8. --full ------------------------------------------------------
     failures = []
     if args.full:
@@ -920,6 +978,8 @@ def smoke(args, records):
             dump(args.out, records)    # kept for diagnosis if a gate fails
         failed = {name: [g for g, ok in rec["gates"].items() if not ok]
                   for name, rec in records["full"].items()}
+        failed["ALADIN crossing"] = [
+            g for g, ok in records["aladin"]["run_gates"].items() if not ok]
         if any(failed.values()):
             failures.append(f"--full gates failed: {failed}")
 
@@ -1574,16 +1634,17 @@ def centralized_path(thomas, ip_staged, paths, systems, smi):
     return out
 
 
-def classic_run(thomas, name, paths, **kw):
-    """``run_pi_admm(**kw)`` on the card between two synchronizes, with the
+def k1_free_run(thomas, name, paths, run, owner):
+    """``run()`` on the card between two synchronizes, with the
     block-Thomas counts set to 0 just before and read just after: the path
-    must launch and capture none. Returns the result and the wall seconds."""
-    from dlp_admm_torch.mpc import run_pi_admm
+    must launch and capture none, and ``extras[owner]`` (the engine or
+    planner) must sit on the card. Returns the result and the wall
+    seconds."""
     thomas.reset_counts()
     captured = dict(thomas.captured)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = run_pi_admm(**kw)
+    res = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1 = dict(thomas.launches_by_kernel)
@@ -1591,10 +1652,17 @@ def classic_run(thomas, name, paths, **kw):
     if any(k1.values()) or any(k1_captured.values()):
         raise RuntimeError(f"{name} launched block-Thomas kernels: {k1}, "
                            f"captured {k1_captured}")
-    if res.extras["engine"].device.type != torch.device(DEVICE).type:
-        raise RuntimeError(f"{name} ran on {res.extras['engine'].device}")
+    if res.extras[owner].device.type != torch.device(DEVICE).type:
+        raise RuntimeError(f"{name} ran on {res.extras[owner].device}")
     paths[name] = k1
     return res, wall
+
+
+def classic_run(thomas, name, paths, **kw):
+    """``run_pi_admm(**kw)`` through :func:`k1_free_run`."""
+    from dlp_admm_torch.mpc import run_pi_admm
+    return k1_free_run(thomas, name, paths, lambda: run_pi_admm(**kw),
+                       "engine")
 
 
 def _dual_cfg(kw):
@@ -1683,6 +1751,166 @@ def classic_path(thomas, paths, smi, full):
             raise RuntimeError(f"PI-ADMM classic sigmoid A/B fails "
                                f"test_pi_vs_plain's gates: {got}")
     return out
+
+
+def _per_step_err(states, ref_states):
+    return np.abs(states - ref_states).reshape(len(states), -1).max(axis=1)
+
+
+def fixed_dual_path(thomas, paths, smi, full):
+    """Phase 13: the bilevel, tightening and tightening-slack planners
+    through ``run_obca`` with the driver's defaults, their first
+    ``FIXED_DUAL_SMOKE_STEPS`` steps (``full``: all 42 / 62 / 62), against
+    their JAX runs and on tests/test_bilevel.py's gates, then the
+    4-vehicle tightening's 10 steps. The local and dual solves are dense IP
+    solves (``torch.linalg``); no block-Thomas kernel runs."""
+    from dlp_admm_torch.config import Formulation, ObcaConfig
+    from dlp_admm_torch.mpc import run_obca
+    ref = np.load(FIXTURE_BILEVEL)
+    out = {}
+    runs = [(name, getattr(Formulation, name.upper()), {}, name)
+            for name in ("bilevel", "tightening", "tightening_slack")]
+    runs.append(("tightening V=4", Formulation.TIGHTENING,
+                 dict(ocfg=ObcaConfig(num_veh=4, horizon=8, min_dis=1.0)),
+                 "v4"))
+    for name, form, kw, key in runs:
+        n = len(ref[f"{key}_elastic"])
+        if key != "v4" and not full:
+            n = FIXED_DUAL_SMOKE_STEPS
+        want = ref[f"{key}_states"][:n + 1]
+        ref_el, ref_kkt = ref[f"{key}_elastic"][:n], ref[f"{key}_dual_kkt"][:n]
+        res, wall = k1_free_run(
+            thomas, f"{name} float64", paths,
+            lambda: run_obca(form, n_steps=n, **kw), "planner")
+        states, infos = res.states, res.extras["infos"]
+        el = np.asarray([i["elastic"] for i in infos])
+        kkt = np.asarray([i["dual_kkt"] for i in infos])
+        loc = np.asarray([i["local_trips"] for i in infos])
+        dual = np.asarray([i["dual_trips"] for i in infos])
+        strict = min(n, int(ref[f"{key}_chaotic_from"]))
+        err = _per_step_err(states, want)
+        p = states[..., :2]
+        row = dict(
+            steps=n, strict_steps=strict, max_state_err=float(err.max()),
+            max_state_err_strict=float(err[:strict + 1].max()),
+            max_elastic_rel_err=float(np.max(np.abs(el - ref_el)
+                                             / np.abs(ref_el))),
+            max_dual_kkt_rel_err=float(np.max(np.abs(kkt - ref_kkt)
+                                              / np.abs(ref_kkt))),
+            wall_s=wall, wall_per_step_s=wall / n,
+            step_times_s=[min(res.metrics.step_times),
+                          max(res.metrics.step_times)],
+            local_trips_per_step=float(loc.mean()),
+            dual_trips_per_step=float(dual.mean()),
+            local_trips=int(loc.sum()), dual_trips=int(dual.sum()),
+            wall_per_trip_ms=1e3 * wall / int(loc.sum() + dual.sum()),
+            dual_lanes=res.extras["planner"].n_pairs * 7, nvidia_smi=smi)
+        if key == "v4":
+            lane_err = float(np.abs(states[:, :, 1]
+                                    - np.asarray(V4_LANE_Y)).max())
+            pair_d = [float(np.linalg.norm(p[:, a] - p[:, b],
+                                           axis=-1).min())
+                      for a, b in ((0, 1), (2, 3))]
+            row.update(max_lane_err_m=lane_err, min_pair_distance_m=pair_d)
+            gates = {"finite": bool(np.all(np.isfinite(states))),
+                     f"lanes within {V4_LANE_TOL_M} m":
+                         lane_err < V4_LANE_TOL_M,
+                     f"lane pairs > {FIXED_DUAL_MIN_DIST} m":
+                         min(pair_d) > FIXED_DUAL_MIN_DIST}
+        else:
+            d = float(np.linalg.norm(p[:, 0] - p[:, 1], axis=-1).min())
+            row.update(min_center_distance_m=d)
+            gates = {"finite": bool(np.all(np.isfinite(states))),
+                     f"centre distance > {FIXED_DUAL_MIN_DIST} m":
+                         d > FIXED_DUAL_MIN_DIST}
+        log(f"{name} float64 vs JAX: " + json.dumps(row))
+        if states.shape != want.shape or not all(gates.values()):
+            raise RuntimeError(f"{name}: states {states.shape}, gates "
+                               f"{gates}")
+        if not err[:strict + 1].max() <= STATE_TOL:
+            raise RuntimeError(f"{name}: states {err[:strict + 1].max():.3e}"
+                               f" from JAX before step {strict}")
+        np.testing.assert_allclose(el[:strict], ref_el[:strict],
+                                   rtol=ELASTIC_TOL[1],
+                                   atol=ELASTIC_TOL[0],
+                                   err_msg=f"{name} elastic")
+        np.testing.assert_allclose(kkt[:strict], ref_kkt[:strict],
+                                   rtol=DUAL_KKT_TOL[1],
+                                   atol=DUAL_KKT_TOL[0],
+                                   err_msg=f"{name} dual_kkt")
+        out[name] = dict(row, gates=gates)
+    return out
+
+
+def aladin_path(thomas, paths, smi, full):
+    """Phase 14: the ALADIN crossing through ``run_pi_admm(layout=
+    "aladin")``, its first ``ALADIN_SMOKE_STEPS`` steps (``full``: all 45),
+    against its JAX run and on tests/test_aladin.py's gates (those of the
+    whole run only with ``full``: they fail the run at its end, so that
+    the other ``--full`` records are kept), and ``run_obca(Formulation.
+    ALADIN)``'s dispatch. The agents' NLPs are dense IP solves and the
+    coupled QP one dense solve; no block-Thomas kernel runs."""
+    from dlp_admm_torch.config import Formulation, SolverConfig
+    from dlp_admm_torch.mpc import run_obca, run_pi_admm
+    ref = np.load(FIXTURE_ALADIN)
+    prof = json.loads(str(ref["profile"]))
+    name = "ALADIN crossing float64"
+    n = prof["steps"] if full else ALADIN_SMOKE_STEPS
+    res, wall = k1_free_run(
+        thomas, name, paths, lambda: run_pi_admm(
+            layout="aladin", scfg=SolverConfig(**prof["scfg"]), n_steps=n),
+        "planner")
+    states, its = res.states, np.asarray(res.extras["iterations"])
+    strict = min(n, int(ref["chaotic_from"]))
+    err = _per_step_err(states, ref["states"][:n + 1])
+    d = np.linalg.norm(states[:, 0, :2] - states[:, 1, :2], axis=-1)
+    total = int(its.sum())
+    row = dict(iterations=its.tolist(),
+               jax_iterations=ref["iterations"][:n].tolist(),
+               strict_steps=strict, total_iterations=total,
+               jax_total_iterations=int(ref["iterations"][:n].sum()),
+               jax_moved_total_iterations=ref[
+                   "moved_total_iterations"].tolist(),
+               jax_moved_min_distance_m=ref["moved_min_distance_m"].tolist(),
+               max_state_err_strict=float(err[:strict + 1].max()),
+               max_state_err=float(err.max()),
+               min_distance_m=float(d.min()), wall_s=wall,
+               wall_per_step_s=wall / n, wall_per_iteration_s=wall / total,
+               step_times_s=[min(res.metrics.step_times),
+                             max(res.metrics.step_times)],
+               nvidia_smi=smi)
+    gates = {"finite": bool(np.all(np.isfinite(states))),
+             f"clearance > {ALADIN_MIN_DIST} m": float(d.min())
+             > ALADIN_MIN_DIST}
+    run_gates = {"vehicle 0 crossed": float(states[-1, 0, 0]) > 5.0,
+                 "vehicle 1 crossed": float(states[-1, 1, 1]) < -5.0,
+                 f"iterations < {ALADIN_MAX_TOTAL_ITERS}":
+                     total < ALADIN_MAX_TOTAL_ITERS} if full else {}
+    log(f"{name} vs JAX: " + json.dumps(dict(row, gates=gates,
+                                             run_gates=run_gates)))
+    if states.shape != (n + 1, 2, 3) or not all(gates.values()):
+        raise RuntimeError(f"{name}: states {states.shape}, gates {gates}")
+    if not np.array_equal(its[:strict], ref["iterations"][:strict]):
+        raise RuntimeError(f"{name}: iterations differ from JAX before step "
+                           f"{strict}")
+    if not err[:strict + 1].max() <= STATE_TOL:
+        raise RuntimeError(f"{name}: states {err[:strict + 1].max():.3e} "
+                           f"from JAX before step {strict}")
+    dsp = prof["dispatch"]
+    res, dwall = k1_free_run(
+        thomas, "ALADIN dispatch float64", paths, lambda: run_obca(
+            Formulation.ALADIN, n_steps=dsp["steps"],
+            scfg=SolverConfig(**dsp["scfg"])), "planner")
+    derr = float(np.abs(res.states - ref["dispatch_states"]).max())
+    dits = np.asarray(res.extras["iterations"])
+    log(f"ALADIN dispatch vs JAX: iterations {dits.tolist()} (JAX "
+        f"{ref['dispatch_iterations'].tolist()}), states {derr:.3e}, "
+        f"wall {dwall:.3f} s")
+    if derr > STATE_TOL or not np.array_equal(dits,
+                                              ref["dispatch_iterations"]):
+        raise RuntimeError("ALADIN dispatch differs from JAX")
+    return dict(row, gates=gates, run_gates=run_gates, dispatch=dict(
+        iterations=dits.tolist(), max_state_err=derr, wall_s=dwall))
 
 
 PHASES = {"warp": ("load", "equilibrate", "eliminate", "refine",

@@ -3,16 +3,18 @@
 The JAX package ``dlp_admm_tpu`` is the reference; this package mirrors its
 module names (``config``, ``scenarios``, ``ops``, ``coordination``,
 ``solvers``, ``models``, ``utils``, ``mpc``, ``parallel``) and imports
-``torch``, never ``jax``. So far it carries the consensus-OBCA flagship
-(``models.obca.ConsensusObcaPlanner``, ``mpc.run_obca(Formulation.CONSENSUS)``)
-in float64 and float32 with the planner modes of its staged and dense
-interior-point solvers (``solvers.ip_staged``, ``solvers.ip``), its
-scenario-batched driver on one device
-(``parallel.consensus_spmd.run_scenario_batch``), the centralized joint
-OBCA planner (``models.obca.CentralizedObcaPlanner``,
-``mpc.run_obca(Formulation.CENTRALIZED)``), and the PI-ADMM engine in its
-classic and pairwise layouts (``models.pi_admm``, ``mpc.run_pi_admm``). The block-tridiagonal KKT solve of the staged
-solver is hand-written CUDA (``csrc/block_thomas_warp.cu``,
+``torch``, never ``jax``. It carries every planner of the JAX package: the
+consensus-OBCA flagship (``models.obca.ConsensusObcaPlanner``,
+``mpc.run_obca(Formulation.CONSENSUS)``) in float64 and float32 with the
+planner modes of its staged and dense interior-point solvers
+(``solvers.ip_staged``, ``solvers.ip``), its scenario-batched driver on one
+device (``parallel.consensus_spmd.run_scenario_batch``), the centralized
+joint OBCA planner (``models.obca.CentralizedObcaPlanner``), the bilevel
+and tightening planners (``models.bilevel``), the PI-ADMM engine in its
+classic and pairwise layouts (``models.pi_admm``, ``mpc.run_pi_admm``) and
+the ALADIN coordinator (``models.aladin``,
+``run_pi_admm(layout="aladin")``). The block-tridiagonal KKT solve of the
+staged solver is hand-written CUDA (``csrc/block_thomas_warp.cu``,
 ``csrc/block_thomas_wide.cu``). Its entry points run on the CUDA card
 unless the caller names another device.
 

@@ -1,12 +1,10 @@
 """Receding-horizon driver (port of ``dlp_admm_tpu/mpc/driver.py``).
 
-So far the centralized joint OBCA planner
-(``run_obca(Formulation.CENTRALIZED, ...)``), the consensus-ADMM OBCA
-flagship (``run_obca(Formulation.CONSENSUS, ...)``) and both layouts of the
-PI-ADMM engine (``run_pi_admm(layout="classic" | "pairwise", ...)``) run
-here, with the JAX driver's defaults. The bilevel, tightening and ALADIN
-formulations, the ALADIN layout and plotting are still to be ported
-(ROADMAP queue 1, items 14-16).
+Every formulation of ``run_obca`` (centralized, consensus, bilevel,
+tightening, tightening with the slack direction, ALADIN) and every layout
+of ``run_pi_admm`` (classic, pairwise, ALADIN) runs here, with the JAX
+driver's defaults. Plotting is still to be ported (ROADMAP queue 1,
+item 16).
 """
 from __future__ import annotations
 
@@ -18,6 +16,7 @@ import torch
 
 from ..config import (DualUpdateConfig, Formulation, ObcaConfig,
                       PiAdmmConfig, SolverConfig, VehicleConfig)
+from ..models.pi_admm import _TODO_UTILS
 from ..utils.metrics import RunMetrics
 
 
@@ -46,21 +45,36 @@ def run_obca(formulation: Formulation = Formulation.CONSENSUS,
     ``CONSENSUS`` ≙ ``decentralized_overtaking_ADMM.py``: ``metrics`` logs
     each step's ADMM iterations and residuals; ``extras`` holds
     ``converge_flags`` and the planner's per-step ``residuals`` rows
-    (``ConsensusObcaPlanner.run``). Both: ``metrics.step_times`` holds one
-    wall time per MPC step, and ``extras["planner"]`` the planner, whose
-    ``block_solves`` counts the block-tridiagonal KKT solves of the run.
+    (``ConsensusObcaPlanner.run``). ``BILEVEL`` ≙ the MISC line and
+    ``TIGHTENING`` / ``TIGHTENING_SLACK`` ≙
+    ``decentralized_overtaking_tighting.py`` (horizon 8, ``min_dis`` 1.0):
+    ``metrics`` logs each step's ``elastic``; ``extras`` holds the
+    planner's per-step ``infos``. ``vcfg=None`` selects the formulation's
+    reference default: T = 7 s, prob = 0.99 (the tighting line's
+    ``veh_config.py:18``) for the tightening pair, the plain
+    ``VehicleConfig`` for the rest; a caller's ``vcfg`` is always honoured.
+    ``ALADIN`` delegates to ``run_pi_admm(layout="aladin")``. All:
+    ``metrics.step_times`` holds one wall time per MPC step, and
+    ``extras["planner"]`` the planner; the OBCA planners' ``block_solves``
+    counts the block-tridiagonal KKT solves of the run.
     """
+    from ..models.bilevel import (BilevelObcaPlanner, TighteningObcaPlanner,
+                                  TighteningSlackObcaPlanner)
     from ..models.obca import CentralizedObcaPlanner, ConsensusObcaPlanner
 
-    if formulation not in (Formulation.CENTRALIZED, Formulation.CONSENSUS):
-        raise NotImplementedError(
-            f"{formulation} is not ported yet (ROADMAP.md queue 1, "
-            f"{_TODO_FORMULATION[formulation]})")
+    if formulation is Formulation.ALADIN:
+        # a PiAdmmConfig-shaped instance (agents = vehicles, coupling =
+        # consensus position copies), so delegate as JAX does
+        return run_pi_admm(scfg=scfg, layout="aladin", n_steps=n_steps,
+                           plot_path=plot_path, device=device, dtype=dtype,
+                           **planner_kwargs)
     if plot_path is not None:
         raise NotImplementedError(
-            "plotting is not ported yet (ROADMAP.md queue 1, item "
-            "'mpc/driver.py and the utilities')")
-    vcfg = vcfg or VehicleConfig()
+            f"plotting is not ported yet ({_TODO_UTILS})")
+    tightening = (Formulation.TIGHTENING, Formulation.TIGHTENING_SLACK)
+    if vcfg is None:
+        vcfg = (VehicleConfig(T=7.0, prob=0.99) if formulation in tightening
+                else VehicleConfig())
     metrics = RunMetrics()
     if formulation is Formulation.CENTRALIZED:
         ocfg = ocfg or ObcaConfig(horizon=15, min_dis=1.0)
@@ -71,6 +85,21 @@ def run_obca(formulation: Formulation = Formulation.CONSENSUS,
             metrics.log_step(t, info["iters"], kkt=info["kkt"])
         return RunResult(states=states, metrics=metrics,
                          extras=dict(controls=ctrls, planner=pl))
+    if formulation is Formulation.BILEVEL or formulation in tightening:
+        ocfg = ocfg or ObcaConfig(horizon=8, min_dis=1.0)
+        cls = {Formulation.BILEVEL: BilevelObcaPlanner,
+               Formulation.TIGHTENING: TighteningObcaPlanner,
+               Formulation.TIGHTENING_SLACK: TighteningSlackObcaPlanner}[
+                   formulation]
+        pl = cls(ocfg, vcfg, scfg, dtype=dtype, device=device,
+                 **planner_kwargs)
+        states, infos = pl.run(n_steps, step_timer=metrics.step_timer)
+        for t, info in enumerate(infos):
+            metrics.log_step(t, 1, elastic=info["elastic"])
+        return RunResult(states=states, metrics=metrics,
+                         extras=dict(infos=infos, planner=pl))
+    if formulation is not Formulation.CONSENSUS:
+        raise ValueError(f"unknown formulation {formulation}")
     ocfg = ocfg or ObcaConfig(horizon=8, min_dis=0.1, rho=100.0,
                               max_admm_iters=15)
     pl = ConsensusObcaPlanner(ocfg, vcfg, scfg, dtype=dtype, device=device,
@@ -85,17 +114,6 @@ def run_obca(formulation: Formulation = Formulation.CONSENSUS,
                                  planner=pl))
 
 
-_TODO_FORMULATION = {
-    Formulation.BILEVEL: "item 14 ('models/bilevel.py')",
-    Formulation.TIGHTENING: "item 14 ('models/bilevel.py')",
-    Formulation.TIGHTENING_SLACK: "item 14 ('models/bilevel.py')",
-    Formulation.ALADIN: "item 15 ('models/aladin.py')",
-}
-_TODO_LAYOUT = {
-    "aladin": "ROADMAP.md queue 1, item 15 ('models/aladin.py')",
-}
-
-
 def run_pi_admm(cfg: Optional[PiAdmmConfig] = None,
                 dual_cfg: DualUpdateConfig = DualUpdateConfig(),
                 scfg: SolverConfig = SolverConfig(),
@@ -107,23 +125,34 @@ def run_pi_admm(cfg: Optional[PiAdmmConfig] = None,
                 **engine_kwargs) -> RunResult:
     """Run the unicycle PI-ADMM planner (``classic`` ≙
     ``casadi_old_PI_ADMM/main.py``, ``pairwise`` ≙ ``casadi/main.py``) one
-    MPC step at a time on ``device`` (the CUDA card unless the caller names
-    another; without a card the default raises).
+    MPC step at a time, or the ALADIN coordinator on the same problem
+    (``layout="aladin"``), on ``device`` (the CUDA card unless the caller
+    names another; without a card the default raises).
 
-    ``states`` is ``[T, V, 3]`` (the state after each step); ``metrics``
-    holds the per-step iterations, rho and dual range; ``extras`` the
-    applied controls and the engine.
+    PI-ADMM: ``states`` is ``[T, V, 3]`` (the state after each step);
+    ``metrics`` holds the per-step iterations, rho and dual range;
+    ``extras`` the applied controls and the engine. ALADIN: ``states`` is
+    ``[T+1, V, 3]`` (the start included); ``metrics`` holds the per-step
+    ALADIN iterations and wall times; ``extras`` the planner and the
+    ``iterations``.
     """
     from ..models.pi_admm import PiAdmmEngine
 
-    if layout in _TODO_LAYOUT:
-        raise NotImplementedError(
-            f"layout={layout!r} is not ported yet ({_TODO_LAYOUT[layout]})")
     if plot_path is not None:
         raise NotImplementedError(
-            "plotting is not ported yet (ROADMAP.md queue 1, item "
-            "'mpc/driver.py and the utilities')")
+            f"plotting is not ported yet ({_TODO_UTILS})")
     cfg = cfg or PiAdmmConfig()
+    if layout == "aladin":
+        from ..models.aladin import AladinUnicyclePlanner
+        pl = AladinUnicyclePlanner(cfg, scfg=scfg, dtype=dtype, device=device,
+                                   **engine_kwargs)
+        metrics = RunMetrics()
+        states, iters = pl.run(n_steps=n_steps,
+                               step_timer=metrics.step_timer)
+        for t, it in enumerate(iters):
+            metrics.log_step(t, int(it))
+        return RunResult(states=states, metrics=metrics,
+                         extras={"planner": pl, "iterations": iters})
     eng = PiAdmmEngine(cfg, dual_cfg, scfg, layout=layout, dtype=dtype,
                        device=device, **engine_kwargs)
     metrics = RunMetrics()

@@ -213,14 +213,29 @@ def test_kernel_plan_at_fourteen_stages(b, dtype, eq, kernel, bp, smem):
 
 
 def test_default_device_is_the_card_and_unported_formulations_raise():
+    """Without a card every planner's default device raises, the fixed-dual
+    family's and ALADIN's too; no formulation is refused any more: each
+    dispatches on the CPU (tests/test_driver_utils.py::
+    test_run_obca_tightening: the tightening pair's default vehicle config
+    is T = 7 s, prob 0.99; ::test_run_obca_honors_caller_vcfg: a caller's
+    reaches the planner)."""
+    forms = tcfg.Formulation
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TPlanner()
-        with pytest.raises(RuntimeError, match="CUDA"):
-            run_obca(tcfg.Formulation.CENTRALIZED, n_steps=1)
-    for form, item in ((tcfg.Formulation.BILEVEL, "item 14"),
-                       (tcfg.Formulation.TIGHTENING, "item 14"),
-                       (tcfg.Formulation.TIGHTENING_SLACK, "item 14"),
-                       (tcfg.Formulation.ALADIN, "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            run_obca(form, device="cpu", n_steps=1)
+        for form in forms:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                run_obca(form, n_steps=1)
+    scfg = tcfg.SolverConfig(ip_iters=30, ip_tol=1e-6)
+    res = run_obca(forms.TIGHTENING, scfg=scfg, n_steps=2, device="cpu")
+    assert res.states.shape == (3, 2, 5) and np.all(np.isfinite(res.states))
+    assert res.extras["planner"].vcfg.T == 7.0
+    assert res.extras["planner"].vcfg.prob == 0.99
+    vcfg = tcfg.VehicleConfig(T=6.0, prob=0.9)
+    res = run_obca(forms.TIGHTENING_SLACK, vcfg=vcfg, scfg=scfg, n_steps=1,
+                   device="cpu")
+    assert res.extras["planner"].vcfg == vcfg
+    res = run_obca(forms.BILEVEL, scfg=scfg, n_steps=1, device="cpu",
+                   n_rounds=1)
+    assert res.extras["planner"].vcfg == tcfg.VehicleConfig()
+    assert res.metrics.extras["elastic"][0] < 1e-6

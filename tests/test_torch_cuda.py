@@ -467,3 +467,107 @@ def test_graphed_batch_step_matches_cpu(cuda):
     for a, b in zip(out3[:1] + tuple(out3[1]) + out3[2:],
                     out1[:1] + tuple(out1[1]) + out1[2:]):
         assert torch.equal(a[0], b[0])
+
+
+# -- the bilevel, tightening and ALADIN planners (dense IP solves) ------------
+
+def _no_k1_since(captured):
+    """No block-Thomas launch since the counts were reset, and no capture
+    since ``captured`` was read."""
+    return (not any(thomas.launches_by_kernel.values())
+            and dict(thomas.captured) == captured)
+
+
+@pytest.mark.cuda
+def test_fixed_dual_and_aladin_planners_default_to_the_card(cuda):
+    from dlp_admm_torch.models.aladin import (AladinEngine, AladinProblem,
+                                              AladinUnicyclePlanner)
+    from dlp_admm_torch.models.bilevel import (BilevelObcaPlanner,
+                                               TighteningObcaPlanner,
+                                               TighteningSlackObcaPlanner)
+    for cls in (BilevelObcaPlanner, TighteningObcaPlanner,
+                TighteningSlackObcaPlanner):
+        pl = cls()
+        assert pl.device.type == "cuda" and pl.refs.device.type == "cuda"
+    pl = AladinUnicyclePlanner()
+    assert pl.device.type == "cuda" and pl.refs.device.type == "cuda"
+    prob = AladinProblem(f=lambda y, p: torch.sum((y - p) ** 2),
+                         h=lambda y, p: y[:0],
+                         a_mats=torch.tensor([[[1.0]], [[-1.0]]]),
+                         b=torch.zeros(1))
+    eng = AladinEngine(prob)
+    assert eng.device.type == "cuda"
+    assert eng.problem.a_mats.device.type == "cuda"
+
+
+def _bilevel_step(device):
+    """One bilevel MPC step (3 rounds) from the planner's own start."""
+    from dlp_admm_torch.models.bilevel import BilevelObcaPlanner
+    pl = BilevelObcaPlanner(device=device)
+    st, bs, info = pl._mpc_step(pl.refs[:, 0, :], pl.create_state(), 0)
+    return [st] + list(bs), info
+
+
+@pytest.mark.cuda
+def test_bilevel_step_on_the_card_matches_cpu(cuda):
+    """One bilevel step (its dense local and dual IP solves, torch.linalg
+    on the card) equals the CPU's within 1e-10 with the same IP trips, a
+    second call gives the same bits, and no block-Thomas kernel runs."""
+    thomas.reset_counts()
+    captured = dict(thomas.captured)
+    got, info = _bilevel_step(cuda)
+    again, info2 = _bilevel_step(cuda)
+    torch.cuda.synchronize()
+    assert _no_k1_since(captured)
+    want, want_info = _bilevel_step("cpu")
+    for a, b, c in zip(got, again, want):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-10, atol=1e-10)
+    assert info == info2
+    assert (info["local_trips"], info["dual_trips"]) == (
+        want_info["local_trips"], want_info["dual_trips"])
+
+
+def _aladin_iteration(device):
+    """One ALADIN iteration of the crossing planner at step 19, the
+    conflict onset, from the JAX run's state there
+    (``tests/data/aladin_ref.npz``) and a zero steering warm start."""
+    from dlp_admm_torch.config import PiAdmmConfig
+    from dlp_admm_torch.models.aladin import AladinUnicyclePlanner
+    pl = AladinUnicyclePlanner(PiAdmmConfig(), scfg=SolverConfig(
+        ip_iters=25, ip_tol=1e-7), device=device)
+    ref = np.load(os.path.join(os.path.dirname(__file__), "data",
+                               "aladin_ref.npz"))
+    xt = torch.as_tensor(ref["states"][19], device=pl.device)
+    u = torch.zeros((pl.v, pl.h), dtype=torch.float64, device=pl.device)
+    pos = pl._predict_own(u, xt, pl.spd).reshape(1, -1).expand(pl.v, -1)
+    state = pl.engine.init_state(torch.cat([u, pos], dim=1))
+    state, ys = pl.engine.step(state, pl._agent_params(xt, 19))
+    return list(state) + [ys]
+
+
+@pytest.mark.cuda
+def test_aladin_iteration_on_the_card_matches_cpu(cuda):
+    """One ALADIN iteration (the agents' batched IP solve, the per-agent
+    derivatives, the coupled KKT solve and the line search) on the card
+    repeats bit for bit, launches no block-Thomas kernel, and equals the
+    CPU's: the iterate ``x``, the agents' solutions ``ys`` and the two
+    residuals within 1e-10; the coupling multipliers ``lam`` within 1e-7.
+    They come out of the coupled KKT solve alone, whose matrix has
+    condition number 2.6e14 here (its -1e-9 multiplier block beside mu =
+    1e4): on the CPU a 1e-16 relative change of that matrix moves the
+    solution by up to 1.3e-10, and the card, whose inputs to it differ at
+    the rounding level, moved ``lam`` by 2.6e-9 (of 18)."""
+    thomas.reset_counts()
+    captured = dict(thomas.captured)
+    got = _aladin_iteration(cuda)
+    again = _aladin_iteration(cuda)
+    torch.cuda.synchronize()
+    assert _no_k1_since(captured)
+    want = _aladin_iteration("cpu")
+    for name, a, b, c in zip(("x", "lam", "coupling_res", "step_norm",
+                              "ys"), got, again, want):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+        tol = 1e-7 if name == "lam" else 1e-10
+        torch.testing.assert_close(a.cpu(), c, rtol=tol, atol=tol,
+                                   msg=name)

@@ -282,8 +282,21 @@ def test_other_dtypes_raise(dtype):
 
 
 def test_run_obca_rejects_unported_formulations():
-    with pytest.raises(NotImplementedError):
-        t_run_obca(tcfg.Formulation.BILEVEL, n_steps=1)
+    """No formulation is refused any more: BILEVEL reaches the bilevel
+    planner (on the CPU when asked; without a card the default device
+    raises, as for every planner). What ``run_obca`` still refuses is
+    plotting (ROADMAP queue 1 item 16)."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            t_run_obca(tcfg.Formulation.BILEVEL, n_steps=1)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        t_run_obca(tcfg.Formulation.BILEVEL, n_steps=1, device="cpu",
+                   plot_path="x.png")
+    res = t_run_obca(tcfg.Formulation.BILEVEL, n_steps=1, device="cpu",
+                     scfg=tcfg.SolverConfig(ip_iters=30, ip_tol=1e-6),
+                     n_rounds=1)
+    assert type(res.extras["planner"]).__name__ == "BilevelObcaPlanner"
+    assert res.states.shape == (2, 2, 5) and np.all(np.isfinite(res.states))
 
 
 # -- float32 -----------------------------------------------------------------

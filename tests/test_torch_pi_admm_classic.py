@@ -211,5 +211,17 @@ def test_classic_refuses_the_pairwise_options():
 
 
 def test_aladin_layout_still_raises():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run_pi_admm(layout="aladin", device="cpu")
+    """``layout="aladin"`` dispatches to the ALADIN planner (its states
+    include the start, its extras the planner and the iterations); it
+    raises only where every layout does: on the default device without a
+    card, and for plotting (ROADMAP item 16)."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_pi_admm(layout="aladin", n_steps=1)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        run_pi_admm(layout="aladin", device="cpu", plot_path="x.png")
+    res = run_pi_admm(layout="aladin", device="cpu", n_steps=2,
+                      scfg=tcfg.SolverConfig(ip_iters=25, ip_tol=1e-7))
+    assert res.states.shape == (3, 2, 3) and np.all(np.isfinite(res.states))
+    assert res.extras["iterations"].tolist() == [1, 1]
+    assert type(res.extras["planner"]).__name__ == "AladinUnicyclePlanner"

@@ -78,7 +78,23 @@ on the CPU through ``ConsensusObcaPlanner.run_scan(return_health=True)``, all
 * ``centralized_v4``: one staged ``solve_at`` of the joint NLP at step 0
   with 3 and with 4 vehicles (``v3_*``, ``v4_*``; ``ip_iters`` 80 and 150,
   the trips JAX needs there), saved as
-  ``tests/data/obca_centralized_v4_ref.npz``.
+  ``tests/data/obca_centralized_v4_ref.npz``;
+* ``bilevel``: ``run_obca(Formulation.BILEVEL | TIGHTENING |
+  TIGHTENING_SLACK)``'s defaults (2 vehicles, horizon 8, ``min_dis`` 1.0,
+  ``SolverConfig()``, 3 bilevel rounds, T = 7 s and prob 0.99 for
+  tightening; 42 / 62 / 62 MPC steps) through the planners' ``run``
+  (``<planner>_states``, ``_elastic``, ``_dual_kkt``, ``_chaotic_from``
+  with the references moved by 1e-12), ``tests/test_bilevel.py``'s
+  12-step bilevel run with 2 rounds (``test_bilevel_*``) and the 4-vehicle
+  tightening of ``tests/test_multivehicle.py`` (``v4_*``, 10 steps), saved
+  as ``tests/data/bilevel_ref.npz``;
+* ``aladin``: the ALADIN crossing of ``tests/test_aladin.py``
+  (``AladinUnicyclePlanner(PiAdmmConfig())``, ``ip_iters`` 25, ``ip_tol``
+  1e-7, 45 steps: ``states``, ``iterations``, ``chaotic_from`` with the
+  start moved by 1e-12, and those moved runs' ``moved_total_iterations``
+  and ``moved_min_distance_m``) and ``run_obca(Formulation.ALADIN)``'s
+  3-step dispatch of its ``test_driver_dispatch`` (``dispatch_*``), saved
+  as ``tests/data/aladin_ref.npz``.
 
 Each OBCA file holds
 
@@ -113,13 +129,14 @@ capped steps, converged fraction and minimum distance).
 With ``--profile batch`` the noise goes on the 16 starts, and the run prints
 per (lane, step) its largest state distance from the committed fixture.
 
-With ``--profile classic`` or ``centralized`` the noise goes on the start
-(the references, for ``centralized``), and the run prints per step its
-largest state distance from the committed fixture.
+With ``--profile classic``, ``centralized`` or ``aladin`` the noise goes
+on the start (the references, for ``centralized``), and the run prints per
+step its largest state distance from the committed fixture (``aladin``:
+its iterations, their total and the minimum distance).
 
 Usage: python tools/make_torch_fixture.py
            [--profile f64|f32|v4|pi_admm|pi_admm_f32|batch|spmd|classic|
-                      centralized|centralized_v4]
+                      centralized|centralized_v4|bilevel|aladin]
            [--steps N] [--out PATH] [--noise EPS --seed N]
 """
 import argparse
@@ -242,6 +259,23 @@ CENTRALIZED = dict(
                 steps=30))
 CENTRALIZED_V4 = dict(ocfg=dict(horizon=15, min_dis=1.0),
                       ip_iters={3: 80, 4: 150})
+# the fixed-dual family: run_obca(BILEVEL | TIGHTENING | TIGHTENING_SLACK)'s
+# defaults (dlp_admm_tpu/mpc/driver.py:57-98: horizon 8, min_dis 1.0,
+# SolverConfig(), 3 bilevel rounds, T = 7 s and prob 0.99 for tightening),
+# tests/test_bilevel.py's 12-step runs (its SCFG is SolverConfig()'s
+# budget; the bilevel test takes 2 rounds) and the 4-vehicle tightening of
+# tests/test_multivehicle.py:90-104
+BILEVEL = dict(
+    planners=("bilevel", "tightening", "tightening_slack"),
+    ocfg=dict(horizon=8, min_dis=1.0), scfg=dict(ip_iters=40, ip_tol=1e-6),
+    n_rounds=3, test_steps=12, test_n_rounds=2,
+    v4=dict(ocfg=dict(num_veh=4, horizon=8, min_dis=1.0), steps=10),
+    chaos_noise=1e-12, chaos_seeds=(1, 2), chaos_tol=1e-6)
+# the ALADIN crossing of tests/test_aladin.py:142-176 (PiAdmmConfig(), 45
+# steps) and the driver dispatch of its test_driver_dispatch
+ALADIN = dict(scfg=dict(ip_iters=25, ip_tol=1e-7), steps=45,
+              dispatch=dict(scfg=dict(ip_iters=15, ip_tol=1e-6), steps=3),
+              chaos_noise=1e-12, chaos_seeds=(1, 2), chaos_tol=1e-6)
 
 
 def default_out(name):
@@ -254,6 +288,8 @@ def default_out(name):
                             "consensus_spmd_cases_ref.npz")
     if name == "classic":
         return os.path.join(ROOT, "tests", "data", "pi_admm_classic_ref.npz")
+    if name in ("bilevel", "aladin"):
+        return os.path.join(ROOT, "tests", "data", f"{name}_ref.npz")
     if name.startswith("centralized"):
         return os.path.join(ROOT, "tests", "data",
                             f"obca_{name}_ref.npz")
@@ -779,11 +815,168 @@ def write_centralized_v4(out, commit):
            if x.ndim == 0}, commit=commit)))
 
 
+def _fixed_dual(name, steps, refs=None, n_rounds=None, num_veh=None):
+    """One JAX run of the fixed-dual planner ``name`` with the driver's
+    defaults: ``(states [n+1, V, 5], elastic [n], dual_kkt [n], seconds)``."""
+    from dlp_admm_tpu.config import VehicleConfig
+    from dlp_admm_tpu.models import bilevel
+    b = BILEVEL
+    ocfg = ObcaConfig(**(b["v4"]["ocfg"] if num_veh else b["ocfg"]))
+    scfg = SolverConfig(**b["scfg"])
+    if name == "bilevel":
+        pl = bilevel.BilevelObcaPlanner(
+            ocfg, VehicleConfig(), scfg, refs=refs,
+            n_rounds=n_rounds or b["n_rounds"])
+    else:
+        cls = (bilevel.TighteningSlackObcaPlanner
+               if name == "tightening_slack"
+               else bilevel.TighteningObcaPlanner)
+        pl = cls(ocfg, VehicleConfig(T=7.0, prob=0.99), scfg, refs=refs)
+    t0 = time.perf_counter()
+    states, infos = pl.run(n_steps=steps)
+    return (np.asarray(states),
+            np.asarray([float(i["elastic"]) for i in infos]),
+            np.asarray([float(i["dual_kkt"]) for i in infos]),
+            time.perf_counter() - t0, np.asarray(pl.refs))
+
+
+def write_bilevel(out, commit):
+    """The fixed-dual family's driver runs (``<planner>_*``) with their
+    chaotic steps, ``tests/test_bilevel.py``'s 12-step bilevel run
+    (``test_bilevel_*``; the tightening tests' 12 steps are the first 12
+    of the driver runs) and the 4-vehicle tightening (``v4_*``)."""
+    b = BILEVEL
+    extra, summary = {}, {}
+    for name in b["planners"]:
+        states, el, kkt, secs, refs = _fixed_dual(name, None)
+        n = len(el)
+        chaotic = n
+        for sd in b["chaos_seeds"]:
+            moved = refs + b["chaos_noise"] * np.random.default_rng(
+                sd).normal(size=refs.shape)
+            st2 = _fixed_dual(name, None, refs=moved)[0]
+            chaotic = min(chaotic, _parting(st2[1:], np.zeros(n), states[1:],
+                                            np.zeros(n), b["chaos_tol"], n)[0])
+        d = np.linalg.norm(states[:, 0, :2] - states[:, 1, :2], axis=-1)
+        extra.update({f"{name}_states": states, f"{name}_elastic": el,
+                      f"{name}_dual_kkt": kkt,
+                      f"{name}_chaotic_from": np.asarray(chaotic)})
+        summary[name] = dict(steps=n, seconds=round(secs, 1),
+                             chaotic_from=chaotic,
+                             min_center_distance_m=float(d.min()))
+    for key, name, kw in (
+            ("test_bilevel", "bilevel", dict(n_rounds=b["test_n_rounds"])),
+            ("v4", "tightening", dict(num_veh=4))):
+        steps = b["v4"]["steps"] if key == "v4" else b["test_steps"]
+        states, el, kkt, secs, refs = _fixed_dual(name, steps, **kw)
+        chaotic = steps
+        for sd in b["chaos_seeds"]:
+            moved = refs + b["chaos_noise"] * np.random.default_rng(
+                sd).normal(size=refs.shape)
+            st2 = _fixed_dual(name, steps, refs=moved, **kw)[0]
+            chaotic = min(chaotic, _parting(
+                st2[1:], np.zeros(steps), states[1:], np.zeros(steps),
+                b["chaos_tol"], steps)[0])
+        extra.update({f"{key}_states": states, f"{key}_elastic": el,
+                      f"{key}_dual_kkt": kkt,
+                      f"{key}_chaotic_from": np.asarray(chaotic)})
+        summary[key] = dict(steps=steps, seconds=round(secs, 1),
+                            chaotic_from=chaotic)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(out, **extra,
+                        profile=np.asarray(json.dumps(b, sort_keys=True)),
+                        commit=np.asarray(commit))
+    print(json.dumps(dict(out=os.path.relpath(out, ROOT), profile="bilevel",
+                          **summary, commit=commit)))
+
+
+def _aladin_run(scfg, steps, xt0=None):
+    """The JAX ALADIN crossing, ``AladinUnicyclePlanner.run``'s loop from
+    ``xt0`` (its own start where None): ``(states, iterations, seconds)``."""
+    import jax.numpy as jnp
+    from dlp_admm_tpu.config import PiAdmmConfig
+    from dlp_admm_tpu.models.aladin import AladinUnicyclePlanner
+    from dlp_admm_tpu.scenarios import pi_admm_initial_states
+    cfg = PiAdmmConfig()
+    pl = AladinUnicyclePlanner(cfg, scfg=SolverConfig(**scfg))
+    xt = jnp.asarray(pi_admm_initial_states(cfg) if xt0 is None else xt0)
+    u = jnp.zeros((pl.v, pl.h))
+    states, iters = [np.asarray(xt)], []
+    t0 = time.perf_counter()
+    for k in range(steps):
+        xt, u, it = pl.mpc_step(xt, u, k)
+        u = jnp.concatenate([u[:, 1:], u[:, -1:]], axis=1)
+        states.append(np.asarray(xt))
+        iters.append(it)
+    return np.stack(states), np.asarray(iters), time.perf_counter() - t0
+
+
+def write_aladin(out, commit, noise=0.0, seed=0):
+    """The ALADIN crossing (``states``, ``iterations``) with its chaotic
+    step and the moved runs' totals, and ``run_obca(Formulation.ALADIN)``'s
+    dispatch run (``dispatch_*``). With ``noise``, only the crossing from a
+    moved start, printed against the committed fixture."""
+    from dlp_admm_tpu.config import Formulation, PiAdmmConfig
+    from dlp_admm_tpu.mpc.driver import run_obca
+    from dlp_admm_tpu.scenarios import pi_admm_initial_states
+    b = ALADIN
+    xt0 = np.asarray(pi_admm_initial_states(PiAdmmConfig()))
+    n = b["steps"]
+    if noise:
+        ref = np.load(default_out("aladin"))
+        st2, its2, secs = _aladin_run(
+            b["scfg"], n, xt0 + noise * np.random.default_rng(seed).normal(
+                size=xt0.shape))
+        first, err = _parting(st2[1:], its2, ref["states"][1:],
+                              ref["iterations"], b["chaos_tol"], n)
+        print(json.dumps(dict(
+            profile="aladin", noise=noise, seed=seed, seconds=round(secs, 1),
+            iterations=its2.tolist(), total_iterations=int(its2.sum()),
+            min_distance_m=float(np.linalg.norm(
+                st2[:, 0, :2] - st2[:, 1, :2], axis=-1).min()),
+            parts_from=first, commit=commit)))
+        return
+    states, its, secs = _aladin_run(b["scfg"], b["steps"])
+    chaotic = n
+    moved_runs = []
+    for sd in b["chaos_seeds"]:
+        st2, its2, _ = _aladin_run(
+            b["scfg"], n, xt0 + b["chaos_noise"] * np.random.default_rng(
+                sd).normal(size=xt0.shape))
+        chaotic = min(chaotic, _parting(st2[1:], its2, states[1:], its,
+                                        b["chaos_tol"], n)[0])
+        moved_runs.append(dict(
+            total_iterations=int(its2.sum()),
+            min_distance_m=float(np.linalg.norm(
+                st2[:, 0, :2] - st2[:, 1, :2], axis=-1).min())))
+    dsp = run_obca(Formulation.ALADIN, n_steps=b["dispatch"]["steps"],
+                   scfg=SolverConfig(**b["dispatch"]["scfg"]))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(
+        out, states=states, iterations=its, chaotic_from=np.asarray(chaotic),
+        moved_total_iterations=np.asarray(
+            [r["total_iterations"] for r in moved_runs]),
+        moved_min_distance_m=np.asarray(
+            [r["min_distance_m"] for r in moved_runs]),
+        dispatch_states=np.asarray(dsp.states),
+        dispatch_iterations=np.asarray(dsp.extras["iterations"]),
+        profile=np.asarray(json.dumps(b, sort_keys=True)),
+        commit=np.asarray(commit))
+    d = np.linalg.norm(states[:, 0, :2] - states[:, 1, :2], axis=-1)
+    print(json.dumps(dict(
+        out=os.path.relpath(out, ROOT), profile="aladin",
+        seconds=round(secs, 1), iterations=its.tolist(),
+        total_iterations=int(its.sum()), chaotic_from=chaotic,
+        min_distance_m=float(d.min()), moved_runs=moved_runs,
+        commit=commit)))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", choices=sorted(PROFILES) + sorted(
         PI_ADMM_LANES) + ["batch", "spmd", "classic", "centralized",
-                          "centralized_v4"], default="f64")
+                          "centralized_v4", "bilevel", "aladin"],
+                    default="f64")
     ap.add_argument("--steps", type=int, default=None,
                     help="MPC steps (default: the whole 42-step run)")
     ap.add_argument("--out", default=None,
@@ -811,6 +1004,10 @@ def main():
         return write_centralized(args.out, commit, args.noise, args.seed)
     if args.profile == "centralized_v4":
         return write_centralized_v4(args.out, commit)
+    if args.profile == "bilevel":
+        return write_bilevel(args.out, commit)
+    if args.profile == "aladin":
+        return write_aladin(args.out, commit, args.noise, args.seed)
     if args.profile in PI_ADMM_LANES:
         return write_pi_admm(args.profile, args.out, commit, args.noise,
                              args.seed)

@@ -13,10 +13,12 @@ joint OBCA planner (``models.obca.CentralizedObcaPlanner``), the bilevel
 and tightening planners (``models.bilevel``), the PI-ADMM engine in its
 classic and pairwise layouts (``models.pi_admm``, ``mpc.run_pi_admm``) and
 the ALADIN coordinator (``models.aladin``,
-``run_pi_admm(layout="aladin")``). The block-tridiagonal KKT solve of the
-staged solver is hand-written CUDA (``csrc/block_thomas_warp.cu``,
-``csrc/block_thomas_wide.cu``). Its entry points run on the CUDA card
-unless the caller names another device.
+``run_pi_admm(layout="aladin")``), with the JAX package's utilities
+(``utils``: checkpoint/resume of every planner's carry, the native trace
+stream, the profiler context, plots). The block-tridiagonal KKT solve of
+the staged solver is hand-written CUDA (``csrc/block_thomas_warp.cu``,
+``csrc/block_thomas_wide.cu``, ``csrc/block_thomas_big.cu``). Its entry
+points run on the CUDA card unless the caller names another device.
 
 Importing the package turns TF32 off for float32 matmuls and convolutions,
 the counterpart of ``dlp_admm_tpu/__init__.py`` forcing full-float32 matmul

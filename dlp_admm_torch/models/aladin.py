@@ -26,8 +26,9 @@ One iteration (ref ``example2.py:184-281``):
 Agents share one (f, h, g) structure; per-agent data is the parameter
 pytree, whose tensor leaves carry a leading agent axis. ``run`` reads the
 two termination residuals on the host once an iteration. No block-Thomas
-kernel runs here. Checkpoint/resume is not ported yet and raises
-``NotImplementedError``.
+kernel runs here. ``AladinEngine.run`` saves its ``AladinState`` after
+every iteration with ``checkpoint_path`` and continues a saved run with
+``resume=True`` (:mod:`..utils.checkpoint`).
 """
 from __future__ import annotations
 
@@ -44,8 +45,8 @@ from ..config import PiAdmmConfig, SolverConfig
 from ..ops.dynamics import unicycle_rollout_exact, unicycle_rollout_local
 from ..solvers.ip import NLP, _lane_dims, solve_nlp_batch
 from ..solvers.linalg import dense_solve
+from ..utils.checkpoint import resume_carry, save_carry
 from .obca import _check_dtype, resolve_device
-from .pi_admm import _TODO_UTILS
 
 
 class AladinProblem(NamedTuple):
@@ -259,16 +260,18 @@ class AladinEngine:
         """Host loop with the reference's termination test
         (``example2.py:211-216``): ``||sum A_i y_i - b||_1 <= tol`` and
         ``rho ||y - x||_1 <= tol``, read once an iteration. Returns
-        ``(AladinState, ys)``."""
-        if checkpoint_path is not None or resume:
-            raise NotImplementedError(
-                f"checkpoint/resume is not ported yet ({_TODO_UTILS})")
+        ``(AladinState, ys)``. ``checkpoint_path`` saves the
+        ``AladinState`` after every iteration; ``resume=True`` continues a
+        saved run from its last completed iteration."""
         p = pytree.tree_map(
             lambda a: a.to(self.device) if torch.is_tensor(a) else a, p)
-        state = self.init_state(x0)
+        state, start = resume_carry(checkpoint_path, resume,
+                                    self.init_state(x0))
         ys = state.x
-        for _ in range(n_iters):
+        for it in range(start, n_iters):
             state, ys = self.step(state, p)
+            if checkpoint_path is not None:
+                save_carry(checkpoint_path, state, it + 1)
             if tol is not None and (float(state.coupling_res) <= tol
                                     and float(state.step_norm) <= tol):
                 break

@@ -24,7 +24,9 @@ its K = V-1 neighbour rows as fixed data. The IP loop reads ``done`` on the
 host once per trip; the JAX ``lax.scan`` over the bilevel rounds is a
 Python loop here. No block-Thomas kernel runs on these paths.
 
-Checkpoint/resume is not ported yet and raises ``NotImplementedError``.
+``run`` saves the ``(init_state, FixedDualState)`` carry after every step
+with ``checkpoint_path`` and continues a saved run with ``resume=True``
+(:mod:`..utils.checkpoint`).
 """
 from __future__ import annotations
 
@@ -40,9 +42,9 @@ from ..config import ObcaConfig, SolverConfig, VehicleConfig
 from ..ops.geometry import halfspaces
 from ..ops.pairs import pair_indices
 from ..solvers.ip import NLP, solve_nlp_batch
+from ..utils.checkpoint import resume_carry, save_carry
 from .obca import (_box_bounds, _box_residuals, _check_dtype, _dyn_residual,
                    _RecedingHorizon, resolve_device)
-from .pi_admm import _TODO_UTILS
 
 # %% shared: the lower-level collision-dual problem ---------------------------
 
@@ -399,21 +401,24 @@ class _FixedDualPlannerBase(_RecedingHorizon):
         IP trips the step's local and dual solves ran (``local_trips``,
         ``dual_trips``). ``step_timer``, a context-manager factory such as
         ``RunMetrics.step_timer``, wraps each step (its host reads
-        included)."""
-        if checkpoint_path is not None or resume:
-            raise NotImplementedError(
-                f"checkpoint/resume is not ported yet ({_TODO_UTILS})")
+        included). ``checkpoint_path`` saves the ``(init_state,
+        FixedDualState)`` carry after every step; ``resume=True`` continues
+        a saved run from its last completed step."""
         timer = step_timer or contextlib.nullcontext
         n_steps = self._n_steps(n_steps)
         init_state = self.refs[:, 0, :]
         bs = self.create_state()
+        (init_state, bs), start = resume_carry(checkpoint_path, resume,
+                                               (init_state, bs))
         states, infos = [init_state.cpu().numpy()], []
-        for t in range(n_steps):
+        for t in range(start, n_steps):
             with timer():
                 init_state, bs, info = self._mpc_step(init_state, bs, t)
                 states.append(init_state.cpu().numpy())
             infos.append({k: float(v) if torch.is_tensor(v) else v
                           for k, v in info.items()})
+            if checkpoint_path is not None:
+                save_carry(checkpoint_path, (init_state, bs), t + 1)
         self.carry = (init_state, bs)
         return np.stack(states), infos
 

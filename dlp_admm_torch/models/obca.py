@@ -32,11 +32,13 @@ blocks (paper eq. (4)/(5)/(6)):
     (4b)  A_i(x_i)^T l_i + A_j(x_j)^T l_j  = 0
     (4c)  ||A_i(x_i)^T l_i||^2 <= 1,  l >= 0
 
-``branch_commit``, ``edge_prox != 0``, ``mpc_step_trace`` and
-checkpoint/resume are not ported yet and raise ``NotImplementedError``
-naming the ROADMAP item that holds them. The scenario-batched step of
-:mod:`..parallel.consensus_spmd` builds its parameters with this
-planner's methods.
+``branch_commit``, ``edge_prox != 0`` and ``mpc_step_trace`` are not
+ported yet and raise ``NotImplementedError`` naming the ROADMAP item that
+holds them. ``ConsensusObcaPlanner.run`` saves its ``(init_state,
+BarState)`` carry after every step with ``checkpoint_path`` and continues
+a saved run with ``resume=True`` (:mod:`..utils.checkpoint`). The
+scenario-batched step of :mod:`..parallel.consensus_spmd` builds its
+parameters with this planner's methods.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ from ..ops.geometry import halfspaces
 from ..ops.pairs import pair_indices
 from ..solvers.ip import NLP, NLPSolution, solve_nlp, solve_nlp_batch
 from ..solvers.ip_staged import StagedNLP, solve_staged
+from ..utils.checkpoint import resume_carry, save_carry
 
 _TODO_OPTIONS = "ROADMAP.md queue 1, item 'ConsensusObcaPlanner options'"
 
@@ -1166,19 +1169,20 @@ class ConsensusObcaPlanner(_RecedingHorizon):
 
         ``step_timer``, a context-manager factory such as
         ``RunMetrics.step_timer``, wraps each step (its host reads included,
-        so the time covers the device work).
+        so the time covers the device work). ``checkpoint_path`` saves the
+        ``(init_state, BarState)`` carry after every step; ``resume=True``
+        continues a saved run from its last completed step (the records of
+        the completed steps are not replayed), on this planner's device.
         """
-        if checkpoint_path is not None or resume:
-            raise NotImplementedError(
-                "checkpoint/resume is not ported yet (ROADMAP.md queue 1, "
-                "item 'mpc/driver.py and the utilities')")
         timer = step_timer or contextlib.nullcontext
         n_steps = self._n_steps(n_steps)
         init_state = self.refs[:, 0, :]
         bs = self.create_bar_state()
+        (init_state, bs), start = resume_carry(checkpoint_path, resume,
+                                               (init_state, bs))
         states = [init_state.cpu().numpy()]
         iters, residuals, flags = [], [], []
-        for t in range(n_steps):
+        for t in range(start, n_steps):
             with timer():
                 (init_state, bs, it, pr, du, cv, nlp_ok, nlp_kkt,
                  gap) = self._mpc_step(init_state, bs, t)
@@ -1189,5 +1193,7 @@ class ConsensusObcaPlanner(_RecedingHorizon):
                               float(ok[1]), float(kk[0]), float(kk[1]),
                               float(gap)))
             flags.append(bool(cv))
+            if checkpoint_path is not None:
+                save_carry(checkpoint_path, (init_state, bs), t + 1)
         self.carry = (init_state, bs)
         return np.stack(states), np.array(iters), residuals, flags

@@ -37,7 +37,10 @@ Two drivers, as in JAX:
   chunk of trips. A lane past its last step is frozen (every write masked),
   so the records do not depend on the chunk size.
 
-Checkpointing is not ported yet and raises ``NotImplementedError``.
+``PiAdmmEngine.run`` saves the ``(xt, u)`` carry (with
+``carry_admm_state``, ``(xt, u, AdmmCarry)``) after every step with
+``checkpoint_path``, in the JAX package's shapes of one lane, and continues
+a saved run with ``resume=True`` (:mod:`..utils.checkpoint`).
 """
 from __future__ import annotations
 
@@ -54,9 +57,8 @@ from ..coordination.residuals import (min_pair_distance, per_edge_residuals,
 from ..ops.dynamics import unicycle_rollout_edge, unicycle_rollout_local
 from ..ops.pairs import num_pairs, pair_indices
 from ..solvers.qp import _mv, solve_qp
+from ..utils.checkpoint import resume_carry, save_carry
 from .obca import resolve_device
-
-_TODO_UTILS = "ROADMAP.md queue 1, item 16 ('mpc/driver.py and the utilities')"
 
 
 # %% affine models of the rollouts -------------------------------------------
@@ -449,6 +451,19 @@ class AdmmCarry(NamedTuple):
     sum_err: torch.Tensor    # PI integrator state
     diff_val: torch.Tensor   # anti-windup back-calculation feed
     active: torch.Tensor     # [S, P] pairs active at the previous step's end
+
+
+def _one_lane(carry: tuple) -> tuple:
+    """A one-lane carry (tensors and :class:`AdmmCarry`) without its lane
+    axis: the JAX package's shapes, which its checkpoints hold."""
+    return tuple(AdmmCarry(*(a[0] for a in c)) if isinstance(c, AdmmCarry)
+                 else c[0] for c in carry)
+
+
+def _with_lane(carry: tuple) -> tuple:
+    """The inverse of :func:`_one_lane`."""
+    return tuple(AdmmCarry(*(a[None] for a in c))
+                 if isinstance(c, AdmmCarry) else c[None] for c in carry)
 
 
 def _leaves(tree):
@@ -879,6 +894,18 @@ class PiAdmmEngine:
         """Whole MPC run of one lane, step by step. Returns the stacked
         :class:`StepRecord` of numpy arrays (leading axis: steps), as the
         JAX ``run_scan``."""
+        return self.run(xt0, n_steps)
+
+    def run(self, xt0: Optional[np.ndarray] = None,
+            n_steps: Optional[int] = None,
+            checkpoint_path: Optional[str] = None,
+            resume: bool = False) -> StepRecord:
+        """MPC loop of one lane (the same trajectory as :meth:`run_scan`).
+        ``checkpoint_path`` saves the ``(xt [V, 3], u [V, H])`` carry, with
+        ``carry_admm_state`` ``(xt, u, AdmmCarry)``, after every step, in
+        the JAX package's shapes; ``resume=True`` continues a saved run from
+        its last completed step (the records of the completed steps are not
+        replayed)."""
         cfg = self.cfg
         if xt0 is None:
             xt0 = scenarios.pi_admm_initial_states(cfg)
@@ -888,8 +915,15 @@ class PiAdmmEngine:
                         device=self.device)
         n_steps = cfg.n_mpc_steps if n_steps is None else n_steps
         admm = self.init_admm_carry(1)
+
+        def carry():
+            return (xt, u, admm) if self.carry_admm_state else (xt, u)
+        restored, start = resume_carry(checkpoint_path, resume,
+                                       _one_lane(carry()))
+        xt, u, *rest = _with_lane(restored)
+        admm = rest[0] if rest else admm
         records = []
-        for step in range(n_steps):
+        for step in range(start, n_steps):
             # shift-warm-start (ref main.py:85: init_u = [u[1:], u[-1]])
             u = torch.cat([u[..., 1:], u[..., -1:]], dim=-1)
             if self.layout == "classic":
@@ -899,18 +933,10 @@ class PiAdmmEngine:
                          else None)
                 xt, u, rec, admm = self._mpc_step_pairwise(xt, u, step, admm0)
             records.append(rec)
+            if checkpoint_path is not None:
+                save_carry(checkpoint_path, _one_lane(carry()), step + 1)
         return StepRecord(*(torch.stack([getattr(r, f)[0] for r in records])
                             .cpu().numpy() for f in StepRecord._fields))
-
-    def run(self, xt0: Optional[np.ndarray] = None,
-            n_steps: Optional[int] = None,
-            checkpoint_path: Optional[str] = None, resume: bool = False):
-        """MPC loop of one lane (the same trajectory as :meth:`run_scan`).
-        Checkpointing is not ported yet."""
-        if checkpoint_path is not None or resume:
-            raise NotImplementedError(
-                f"checkpointing is not ported yet ({_TODO_UTILS})")
-        return self.run_scan(xt0, n_steps)
 
     # -- fused whole-run batched driver ------------------------------------
 

@@ -3,8 +3,8 @@
 Every formulation of ``run_obca`` (centralized, consensus, bilevel,
 tightening, tightening with the slack direction, ALADIN) and every layout
 of ``run_pi_admm`` (classic, pairwise, ALADIN) runs here, with the JAX
-driver's defaults. Plotting is still to be ported (ROADMAP queue 1,
-item 16).
+driver's defaults; ``plot_path`` draws the run's trajectories
+(``utils.plotting``) as the JAX driver does.
 """
 from __future__ import annotations
 
@@ -16,8 +16,8 @@ import torch
 
 from ..config import (DualUpdateConfig, Formulation, ObcaConfig,
                       PiAdmmConfig, SolverConfig, VehicleConfig)
-from ..models.pi_admm import _TODO_UTILS
 from ..utils.metrics import RunMetrics
+from ..utils.plotting import plot_trajectories
 
 
 @dataclasses.dataclass
@@ -56,7 +56,8 @@ def run_obca(formulation: Formulation = Formulation.CONSENSUS,
     ``ALADIN`` delegates to ``run_pi_admm(layout="aladin")``. All:
     ``metrics.step_times`` holds one wall time per MPC step, and
     ``extras["planner"]`` the planner; the OBCA planners' ``block_solves``
-    counts the block-tridiagonal KKT solves of the run.
+    counts the block-tridiagonal KKT solves of the run. ``plot_path`` writes
+    a PNG of the paths and footprints there (nothing without matplotlib).
     """
     from ..models.bilevel import (BilevelObcaPlanner, TighteningObcaPlanner,
                                   TighteningSlackObcaPlanner)
@@ -68,9 +69,6 @@ def run_obca(formulation: Formulation = Formulation.CONSENSUS,
         return run_pi_admm(scfg=scfg, layout="aladin", n_steps=n_steps,
                            plot_path=plot_path, device=device, dtype=dtype,
                            **planner_kwargs)
-    if plot_path is not None:
-        raise NotImplementedError(
-            f"plotting is not ported yet ({_TODO_UTILS})")
     tightening = (Formulation.TIGHTENING, Formulation.TIGHTENING_SLACK)
     if vcfg is None:
         vcfg = (VehicleConfig(T=7.0, prob=0.99) if formulation in tightening
@@ -83,8 +81,9 @@ def run_obca(formulation: Formulation = Formulation.CONSENSUS,
         states, ctrls, infos = pl.run(n_steps, step_timer=metrics.step_timer)
         for t, info in enumerate(infos):
             metrics.log_step(t, info["iters"], kkt=info["kkt"])
-        return RunResult(states=states, metrics=metrics,
-                         extras=dict(controls=ctrls, planner=pl))
+        return _plotted(RunResult(states=states, metrics=metrics,
+                                  extras=dict(controls=ctrls, planner=pl)),
+                        plot_path, vcfg, formulation)
     if formulation is Formulation.BILEVEL or formulation in tightening:
         ocfg = ocfg or ObcaConfig(horizon=8, min_dis=1.0)
         cls = {Formulation.BILEVEL: BilevelObcaPlanner,
@@ -96,8 +95,9 @@ def run_obca(formulation: Formulation = Formulation.CONSENSUS,
         states, infos = pl.run(n_steps, step_timer=metrics.step_timer)
         for t, info in enumerate(infos):
             metrics.log_step(t, 1, elastic=info["elastic"])
-        return RunResult(states=states, metrics=metrics,
-                         extras=dict(infos=infos, planner=pl))
+        return _plotted(RunResult(states=states, metrics=metrics,
+                                  extras=dict(infos=infos, planner=pl)),
+                        plot_path, vcfg, formulation)
     if formulation is not Formulation.CONSENSUS:
         raise ValueError(f"unknown formulation {formulation}")
     ocfg = ocfg or ObcaConfig(horizon=8, min_dis=0.1, rho=100.0,
@@ -109,9 +109,19 @@ def run_obca(formulation: Formulation = Formulation.CONSENSUS,
     for t, it in enumerate(iters):
         metrics.log_step(t, it, primal=residuals[t][0],
                          dual=residuals[t][1], converged=flags[t])
-    return RunResult(states=states, metrics=metrics,
-                     extras=dict(converge_flags=flags, residuals=residuals,
-                                 planner=pl))
+    return _plotted(RunResult(states=states, metrics=metrics,
+                              extras=dict(converge_flags=flags,
+                                          residuals=residuals, planner=pl)),
+                    plot_path, vcfg, formulation)
+
+
+def _plotted(res: RunResult, plot_path, vcfg, formulation) -> RunResult:
+    """Draw an OBCA run's paths and footprints at ``plot_path`` (JAX
+    ``driver.py:109-110``)."""
+    if plot_path:
+        plot_trajectories(res.states, plot_path, vcfg,
+                          title=formulation.value)
+    return res
 
 
 def run_pi_admm(cfg: Optional[PiAdmmConfig] = None,
@@ -134,13 +144,11 @@ def run_pi_admm(cfg: Optional[PiAdmmConfig] = None,
     ``extras`` the applied controls and the engine. ALADIN: ``states`` is
     ``[T+1, V, 3]`` (the start included); ``metrics`` holds the per-step
     ALADIN iterations and wall times; ``extras`` the planner and the
-    ``iterations``.
+    ``iterations``. ``plot_path`` writes a PNG of the paths there (nothing
+    without matplotlib).
     """
     from ..models.pi_admm import PiAdmmEngine
 
-    if plot_path is not None:
-        raise NotImplementedError(
-            f"plotting is not ported yet ({_TODO_UTILS})")
     cfg = cfg or PiAdmmConfig()
     if layout == "aladin":
         from ..models.aladin import AladinUnicyclePlanner
@@ -151,6 +159,9 @@ def run_pi_admm(cfg: Optional[PiAdmmConfig] = None,
                                step_timer=metrics.step_timer)
         for t, it in enumerate(iters):
             metrics.log_step(t, int(it))
+        if plot_path:
+            plot_trajectories(states, plot_path, footprints=False,
+                              title="aladin")
         return RunResult(states=states, metrics=metrics,
                          extras={"planner": pl, "iterations": iters})
     eng = PiAdmmEngine(cfg, dual_cfg, scfg, layout=layout, dtype=dtype,
@@ -163,5 +174,9 @@ def run_pi_admm(cfg: Optional[PiAdmmConfig] = None,
                          rho=float(rec.rho[t]),
                          dual_min=float(rec.dual_min[t]),
                          dual_max=float(rec.dual_max[t]))
-    return RunResult(states=np.asarray(rec.xt), metrics=metrics,
+    states = np.asarray(rec.xt)
+    if plot_path:
+        plot_trajectories(states, plot_path, footprints=False,
+                          title=f"pi_admm[{layout}]")
+    return RunResult(states=states, metrics=metrics,
                      extras={"u_applied": rec.u_applied, "engine": eng})

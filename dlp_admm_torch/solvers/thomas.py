@@ -19,7 +19,7 @@ float32 stage solve: ``d = 1/sqrt(max(rowmax|C_k|, 1e-30))``, eliminate
 ``(D C D) Y = D [U_k | g_k]``, one refinement pass on the scaled system,
 ``X = D Y``. It stays one kernel launch per solve.
 
-Two kernels, chosen by the block width (:func:`kernel_plan`):
+Three kernels, chosen by the block width (:func:`kernel_plan`):
 
 * ``warp`` (``csrc/block_thomas_warp.cu``, compiled once per element type),
   B <= 32: one warp per system, the augmented tile in registers, no block
@@ -27,7 +27,11 @@ Two kernels, chosen by the block width (:func:`kernel_plan`):
 * ``wide`` (``csrc/block_thomas_wide.cu``, compiled once per element type),
   32 < B <= 97 in float64 and <= 138 in float32 (equilibrated: <= 80 and
   <= 106): one thread block per system, the tile in registers (warp w owns
-  rows, lane l columns l, l+32, ...), one block barrier a pivot step.
+  rows, lane l columns l, l+32, ...), one block barrier a pivot step;
+* ``big`` (``csrc/block_thomas_big.cu``, compiled once per element type),
+  every width past the wide kernel's classes: one thread block per system,
+  the tile in shared memory where it fits (else in a device workspace),
+  two block barriers a pivot step.
 
 :func:`block_thomas_solve` takes the plain version for tensors on the CPU and
 launches a kernel for tensors on a CUDA device; there is no fallback between
@@ -43,9 +47,10 @@ import torch
 from .. import cuda_build
 
 PIVOT_FLOOR = 1e-30
-KERNELS = ("warp", "wide")
+KERNELS = ("warp", "wide", "big")
 _WARP_SRC = (cuda_build.CSRC_DIR / "block_thomas_warp.cu",)
 _WIDE_SRC = (cuda_build.CSRC_DIR / "block_thomas_wide.cu",)
+_BIG_SRC = (cuda_build.CSRC_DIR / "block_thomas_big.cu",)
 _F64 = ("-DBLOCK_THOMAS_REAL=double",)
 _F32 = ("-DBLOCK_THOMAS_REAL=float",)
 # library -> (sources, extra nvcc flags); one compiler each, side by side
@@ -54,6 +59,8 @@ LIBRARIES = {
     "block_thomas_warp_f32": (_WARP_SRC, _F32),
     "block_thomas_wide_f64": (_WIDE_SRC, _F64),
     "block_thomas_wide_f32": (_WIDE_SRC, _F32),
+    "block_thomas_big_f64": (_BIG_SRC, _F64),
+    "block_thomas_big_f32": (_BIG_SRC, _F32),
 }
 WARP_MAX_B = 32
 WARP_WIDTHS = (20, 32)      # width bounds the warp kernel is compiled for
@@ -72,6 +79,8 @@ WIDE_CLASSES = {
                     106: (7, (4, 2), (14, 4)), 138: (9, (5, 4), None)},
 }
 WIDE_PROFILE_BP = 80        # the class the profiling build is compiled for
+BIG_THREADS = 512           # threads a block of the big kernel
+BIG_MAX_WARPS = 16          # the big kernel's candidate slots (512 threads)
 # an H100's per-block shared-memory limit and SM count: kernel_plan's
 # defaults when no device is asked (the CPU tests)
 H100_SMEM_LIMIT = 232448
@@ -212,6 +221,19 @@ def wide_bytes(b: int, elem: int, nw: int, ncl: int, rpw: int,
                                                            nt)
 
 
+def big_bytes(b: int, elem: int, tile_in_smem: bool) -> int:
+    """Shared-memory bytes of one block of the big kernel (``big_bytes`` in
+    ``csrc/block_thomas_big.cu``): the pivot row and row j ``[2, 2B+1]``,
+    the new g column, the row scales and the reciprocal pivots ``[3, B]``
+    and, ``tile_in_smem``, the tile ``[B, 2B+1]``, rounded up to 16 bytes;
+    then the warps' candidates (8 + 4 bytes a warp slot) and the pivot
+    rows ``int[B]`` rounded up to 16 bytes."""
+    w = 2 * b + 1
+    n = elem * (2 * w + 3 * b + (b * w if tile_in_smem else 0))
+    return (-(-n // 16) * 16 + 12 * BIG_MAX_WARPS
+            + -(-4 * b // 16) * 16)
+
+
 def wide_classes(dtype: torch.dtype, equilibrate: bool) -> dict:
     """Bound -> (ncl, rpw, nt) of the wide kernel's classes built for
     ``dtype`` and the variant."""
@@ -227,22 +249,35 @@ def kernel_plan(s: int, t: int, b: int, dtype: torch.dtype,
     """Which kernel solves ``S`` systems of ``T`` stages of width ``B`` and
     how it is launched.
 
-    ``kernel`` is chosen by width unless given: ``"warp"`` for B <= 32, else
-    ``"wide"``. The warp kernel spreads the systems over the SMs one warp
-    each before it packs up to 4 warps into a block, and keeps every
-    stage's ``X_k | y_k`` in shared memory where that fits the limit, else
-    in global scratch. Raises ``ValueError`` for a width no kernel holds.
+    ``kernel`` is chosen by width unless given: ``"warp"`` for B <= 32,
+    ``"wide"`` up to its classes' widths, else ``"big"``. The warp kernel
+    spreads the systems over the SMs one warp each before it packs up to 4
+    warps into a block, and keeps every stage's ``X_k | y_k`` in shared
+    memory where that fits the limit, else in global scratch. The big
+    kernel keeps its tile in shared memory where it fits the limit, else in
+    a device workspace. Raises ``ValueError`` for a width the named kernel
+    does not hold.
     """
     elem = torch.finfo(dtype).bits // 8
-    if kernel is None:
-        kernel = "warp" if b <= WARP_MAX_B else "wide"
-    if kernel == "wide":
-        classes = wide_classes(dtype, equilibrate)
+    classes = wide_classes(dtype, equilibrate)
 
-        def fit(x):         # the narrowest class that holds width x
-            return next((bp for bp in sorted(classes) if x <= bp and
-                         wide_bytes(x, elem, -(-x // classes[bp][1]),
-                                    *classes[bp]) <= smem_limit), None)
+    def fit(x):         # the narrowest wide class that holds width x
+        return next((bp for bp in sorted(classes) if x <= bp and
+                     wide_bytes(x, elem, -(-x // classes[bp][1]),
+                                *classes[bp]) <= smem_limit), None)
+    if kernel is None:
+        kernel = ("warp" if b <= WARP_MAX_B else
+                  "wide" if fit(b) is not None else "big")
+    if kernel == "big":
+        tile_in_smem = big_bytes(b, elem, True) <= smem_limit
+        need = big_bytes(b, elem, tile_in_smem)
+        if need > smem_limit:
+            raise ValueError(f"B={b} in {dtype} needs {need} bytes of shared "
+                             f"memory beside the big kernel's tile; this "
+                             f"device allows {smem_limit}")
+        return dict(kernel="big", threads=BIG_THREADS, blocks=s,
+                    tile_in_smem=tile_in_smem, smem_bytes=need)
+    if kernel == "wide":
         bp = fit(b)
         if bp is None:
             b_max = max(x for x in range(1, max(classes) + 1) if fit(x))
@@ -284,7 +319,11 @@ def _lib(name: str):
     lib = cuda_build.load(name, *LIBRARIES[name])
     if not getattr(lib, "_typed", False):
         ptr, i32, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-        if name.startswith("block_thomas_wide"):
+        if name.startswith("block_thomas_big"):
+            lib.block_thomas_big.argtypes = [ptr] * 8 + [i32] * 7 + [sz, ptr]
+            lib.block_thomas_big.restype = i32
+            elem_bytes = lib.block_thomas_big_elem_bytes
+        elif name.startswith("block_thomas_wide"):
             lib.block_thomas_wide.argtypes = [ptr] * 7 + [i32] * 6 + [sz, ptr]
             lib.block_thomas_wide.restype = i32
             lib.block_thomas_wide_profile.argtypes = (
@@ -407,6 +446,27 @@ def launch_kernel(diag: torch.Tensor, upper: torch.Tensor, rhs: torch.Tensor,
                     *args, s, t, b, upper.shape[1], int(equilibrate),
                     plan["bp"], plan["warps"], int(plan["hist_in_smem"]),
                     plan["smem_bytes"], stream)
+        elif name == "big":
+            # scratch: every stage's X_k | y_k, the tile where it does not
+            # fit shared memory and, equilibrated, the scaled stage system
+            # and every pivot step's multipliers; the kernel writes each
+            # element before reading it
+            if profile:
+                raise ValueError("the big kernel has no profiling build")
+            xs = torch.empty_like(diag)
+            ys = torch.empty_like(rhs)
+            w = 2 * b + 1
+            work = None if plan["tile_in_smem"] else torch.empty(
+                (s, b * w), dtype=rhs.dtype, device=rhs.device)
+            orig = torch.empty((s, b * w + b * b), dtype=rhs.dtype,
+                               device=rhs.device) if equilibrate else None
+            rc = lib.block_thomas_big(
+                diag.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
+                out.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+                None if work is None else work.data_ptr(),
+                None if orig is None else orig.data_ptr(), s, t, b,
+                upper.shape[1], int(equilibrate), plan["threads"],
+                int(plan["tile_in_smem"]), plan["smem_bytes"], stream)
         else:
             # scratch: every stage's X_k | y_k and, equilibrated, the scaled
             # stage system and every pivot step's multipliers (rows of the

@@ -290,12 +290,16 @@ def test_driver_dispatch(ref):
     assert res.metrics.iter_history == res.extras["iterations"].tolist()
 
 
-def test_engine_refusals_and_float32():
-    """Unknown globalizations and dtypes are refused, checkpointing raises
-    naming its ROADMAP item, and a float32 planner constructs and runs."""
+def test_engine_refusals_and_float32(tmp_path):
+    """Unknown globalizations and dtypes are refused, a checkpointed run
+    saves its ``AladinState`` (resumed it ends where the run ended), and a
+    float32 planner constructs and runs."""
     eng, p, x0 = _engine(torch, "two_agent_average")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        eng.run(x0, p, checkpoint_path="x.npz")
+    path = str(tmp_path / "al.npz")
+    st, ys = eng.run(x0, p, n_iters=2, tol=None, checkpoint_path=path)
+    st2, ys2 = eng.run(x0, p, n_iters=2, tol=None, checkpoint_path=path,
+                       resume=True)
+    assert torch.equal(st2.x, st.x) and torch.equal(ys2, st.x)
     with pytest.raises(ValueError, match="globalization"):
         ta.AladinEngine(eng.problem, globalization="other", device="cpu")
     with pytest.raises(TypeError, match="float64 or float32"):

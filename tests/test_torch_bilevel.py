@@ -304,10 +304,11 @@ def test_tightening_skips_collision_rows_at_t0(jax_planners):
     _close(nxt, jnxt, STATE_TOL)
 
 
-def test_planner_defaults_and_refusals():
+def test_planner_defaults_and_refusals(tmp_path):
     """JAX's defaults (horizon 8, min_dis 1.0, 3 bilevel rounds, T = 7 s
     and prob 0.99 for tightening), float32 construction, and what the port
-    refuses: other dtypes, unknown couplings, checkpointing."""
+    refuses: other dtypes, unknown couplings, a checkpoint of another
+    planner configuration."""
     bl = tb.BilevelObcaPlanner(device="cpu")
     assert (bl.ocfg.horizon, bl.ocfg.min_dis, bl.n_rounds) == (8, 1.0, 3)
     tg = tb.TighteningSlackObcaPlanner(device="cpu", dtype=torch.float32)
@@ -318,8 +319,13 @@ def test_planner_defaults_and_refusals():
     with pytest.raises(ValueError, match="coupling"):
         tb._FixedDualLocal(tcfg.ObcaConfig(), tcfg.VehicleConfig(),
                            torch.float64, "cpu", "other")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        bl.run(n_steps=1, checkpoint_path="x.npz")
+    path = str(tmp_path / "run.npz")
+    from dlp_admm_torch.utils import save_carry
+    save_carry(path, (bl.refs[:, 0, :], bl.create_state()), 1)
+    other = tb.BilevelObcaPlanner(tcfg.ObcaConfig(horizon=5, min_dis=1.0),
+                                  device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        other.run(n_steps=2, checkpoint_path=path, resume=True)
 
 
 def test_float32_step_runs():

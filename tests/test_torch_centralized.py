@@ -185,12 +185,20 @@ def test_kernel_plan_at_the_centralized_widths():
     plan = thomas.kernel_plan(1, 14, 66, f64)
     assert (plan["kernel"], plan["bp"], plan["smem_bytes"]) == (
         "wide", 80, 81856)
-    # 4 vehicles are past the wide kernel's float64 range (97), and past
-    # its float32 equilibrated range (106)
+    # 4 vehicles are past the wide kernel's float64 range (97) and its
+    # float32 equilibrated range (106): the big kernel, its tile in shared
+    # memory (187 KB of the 227 KB a block may have in float64)
+    plan = thomas.kernel_plan(1, 14, 108, f64)
+    assert plan == dict(kernel="big", threads=512, blocks=1,
+                        tile_in_smem=True, smem_bytes=194176)
+    plan = thomas.kernel_plan(1, 14, 108, f32, equilibrate=True)
+    assert plan == dict(kernel="big", threads=512, blocks=1,
+                        tile_in_smem=True, smem_bytes=97408)
+    # the wide kernel forced past its classes still refuses
     with pytest.raises(ValueError, match="B <= 97"):
-        thomas.kernel_plan(1, 14, 108, f64)
+        thomas.kernel_plan(1, 14, 108, f64, kernel="wide")
     with pytest.raises(ValueError, match="B <= 106"):
-        thomas.kernel_plan(1, 14, 108, f32, equilibrate=True)
+        thomas.kernel_plan(1, 14, 108, f32, equilibrate=True, kernel="wide")
 
 
 @pytest.mark.parametrize("b,dtype,eq,kernel,bp,smem", [
@@ -210,6 +218,64 @@ def test_kernel_plan_at_fourteen_stages(b, dtype, eq, kernel, bp, smem):
         assert plan["hist_in_smem"]
     elif b == 76:
         assert plan["warps"] == 16
+
+
+@pytest.mark.parametrize("b,dtype,eq,in_smem,smem", [
+    (98, torch.float64, False, True, 160544),
+    (81, torch.float64, True, True, 110704),
+    (139, torch.float32, False, True, 159776),
+    (107, torch.float32, True, True, 95648),
+    (118, torch.float64, False, True, 231024),
+    (119, torch.float64, False, False, 7360),
+    (168, torch.float32, False, True, None),
+    (169, torch.float32, False, False, None),
+    (264, torch.float64, False, False, 16048),
+    (264, torch.float32, True, False, 8656)])
+def test_kernel_plan_past_the_wide_classes(b, dtype, eq, in_smem, smem):
+    """Every width past the wide kernel's classes goes to the big kernel:
+    its tile [B, 2B+1] in shared memory where it fits the 232,448 bytes a
+    block may have (float64 up to 118, float32 up to 168), else in a device
+    workspace; the 8-vehicle consensus edge (264) is such a width."""
+    plan = thomas.kernel_plan(7, 7, b, dtype, eq)
+    assert (plan["kernel"], plan["blocks"], plan["tile_in_smem"]) == (
+        "big", 7, in_smem)
+    assert plan["smem_bytes"] == thomas.big_bytes(b, dtype.itemsize, in_smem)
+    assert plan["smem_bytes"] <= thomas.H100_SMEM_LIMIT
+    if smem is not None:
+        assert plan["smem_bytes"] == smem
+
+
+@pytest.mark.parametrize("shape", [(1, 14, 108), (1, 7, 264)],
+                         ids=["s1-t14-b108", "s1-t7-b264"])
+def test_plain_version_solves_the_big_widths(shape):
+    """The kernels' plain version, which the big kernel is held to on the
+    card, against ``torch.linalg.solve`` on the assembled dense matrix of a
+    diagonally dominant system at the big kernel's widths (float64, 1e-12
+    relative: both are backward stable on a system conditioned near 1)."""
+    rng = np.random.default_rng(3)
+    s, t, b = shape
+    diag = rng.normal(size=(s, t, b, b))
+    diag = 0.5 * (diag + np.swapaxes(diag, -1, -2)) + (b + 2.0) * np.eye(b)
+    upper = 0.3 * rng.normal(size=(s, t, b, b))
+    rhs = rng.normal(size=(s, t, b))
+    d, u, r = (torch.as_tensor(a) for a in (diag, upper, rhs))
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # 30x faster here on these small tensors
+    try:
+        got = thomas.block_thomas_solve(d, u, r)
+    finally:
+        torch.set_num_threads(n_threads)
+    a = torch.zeros((s, t * b, t * b), dtype=torch.float64)
+    for k in range(t):
+        i = slice(k * b, (k + 1) * b)
+        a[:, i, i] = d[:, k]
+        if k + 1 < t:
+            j = slice((k + 1) * b, (k + 2) * b)
+            a[:, i, j] = u[:, k]
+            a[:, j, i] = u[:, k].transpose(-1, -2)
+    want = torch.linalg.solve(a, r.reshape(s, t * b)).reshape(s, t, b)
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < 1e-12, rel
 
 
 def test_default_device_is_the_card_and_unported_formulations_raise():

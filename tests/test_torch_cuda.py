@@ -1,7 +1,10 @@
 """The block-Thomas CUDA kernels against their plain PyTorch version, on a
-card: the warp kernel (B <= 32) and the wide kernel (above, and forced onto
-the narrow shapes), plain and equilibrated, at 7 and at 14 stages; and the
-planners that run them, graphed on the card against the CPU.
+card: the warp kernel (B <= 32), the wide kernel (above, up to its width
+classes, and forced onto the narrow shapes) and the big kernel (past the
+wide classes: the 4-vehicle centralized width 108 and the 8-vehicle
+consensus edge width 264), plain and equilibrated, at 7 and at 14 stages;
+and the planners that run them, graphed on the card against the CPU, and a
+checkpointed run resumed on the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs where only the port is installed:
@@ -23,8 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (SHAPES, T14_SHAPES, VARIANTS, WIDE_SHAPES,
-                        equilibrated_max, make_system)
+from chip_smoke import (BIG_SHAPES, SHAPES, T14_SHAPES, VARIANTS,
+                        WIDE_SHAPES, flagship_profile, make_system)
 from dlp_admm_torch.config import ObcaConfig, SolverConfig
 from dlp_admm_torch.models.obca import ConsensusObcaPlanner
 from dlp_admm_torch.solvers import ip_staged, thomas
@@ -58,14 +61,10 @@ def _shape_id(s):
                          ids=_shape_id)
 def test_kernel_matches_plain(cuda, shape, kind, equilibrate, dtype):
     d, u, r = _system(5, shape, kind, dtype, cuda)
-    name = "warp" if shape[2] <= 32 else "wide"
-    if equilibrate and shape[2] > equilibrated_max(thomas, dtype):
-        # past the equilibrated variant's widths the wrapper refuses
-        total = thomas.launches
-        with pytest.raises(ValueError, match="B <= "):
-            thomas.block_thomas_solve(d, u, r, equilibrate)
-        assert thomas.launches == total
-        return
+    # past the equilibrated variant's widths (float64 97) the big kernel
+    name = thomas.kernel_plan(*shape, dtype, equilibrate)["kernel"]
+    assert name == ("warp" if shape[2] <= 32 else "wide" if not (
+        equilibrate and dtype == torch.float64 and shape[2] > 80) else "big")
     before = thomas.launches_by_kernel[name]
     total = thomas.launches
     got = thomas.block_thomas_solve(d, u, r, equilibrate)
@@ -106,13 +105,66 @@ def test_kernel_matches_plain_at_fourteen_stages(cuda, shape, kind,
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
 def test_centralized_four_vehicle_width_is_refused(cuda, dtype):
-    """The 4-vehicle centralized KKT blocks (108 wide) are past the wide
-    kernel's range in the variant the staged solver asks for."""
+    """The 4-vehicle centralized KKT blocks (108 wide), past the wide
+    kernel's range in the variant the staged solver asks for, are no longer
+    refused: the big kernel solves them (one launch, equal to the plain
+    version)."""
     d, u, r = _system(9, (1, 14, 108), "kkt_saddle", dtype, cuda)
+    eq = dtype != torch.float64
+    before = thomas.launches_by_kernel["big"]
+    got = thomas.block_thomas_solve(d, u, r, eq)
+    assert thomas.launches_by_kernel["big"] == before + 1
+    want = thomas.block_thomas_plain(d, u, r, eq)
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < TOL[dtype], rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("kind,equilibrate", VARIANTS,
+                         ids=[f"{k}{'-eq' if e else ''}" for k, e in VARIANTS])
+@pytest.mark.parametrize("shape", BIG_SHAPES, ids=_shape_id)
+def test_big_kernel_matches_plain(cuda, shape, kind, equilibrate, dtype):
+    """Past the wide kernel's classes: the tile in shared memory (108) and
+    in the device workspace (264); float32 unequilibrated at 108, which the
+    wide kernel holds, forced onto the big kernel."""
+    d, u, r = _system(11, shape, kind, dtype, cuda)
+    plan = thomas.kernel_plan(*shape, dtype, equilibrate)["kernel"]
+    assert plan == ("wide" if dtype == torch.float32 and not equilibrate
+                    and shape[2] <= 138 else "big")
+    before = thomas.launches_by_kernel["big"]
+    got = thomas.launch_kernel(d, u, r, equilibrate, kernel="big")
+    assert thomas.launches_by_kernel["big"] == before + 1
+    want = thomas.block_thomas_plain(d, u, r, equilibrate)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < TOL[dtype], rel
+
+
+@pytest.mark.cuda
+def test_consensus_resume_on_the_card_is_bit_equal(cuda, tmp_path):
+    """The flagship's float64 profile (ADMM cap 5): 2 steps with a
+    checkpoint, resumed to step 4 by a new planner on the card, give the
+    bits of the uninterrupted 4 steps; the resumed steps' K1 launches equal
+    their block solves, and the carry stays on the card."""
+    prof = flagship_profile(torch.float64, max_admm_iters=5)
+    path = str(tmp_path / "run.npz")
+    full_st, full_its, _, _ = ConsensusObcaPlanner(
+        **prof, device=cuda).run(n_steps=4)
+    ConsensusObcaPlanner(**prof, device=cuda).run(n_steps=2,
+                                                  checkpoint_path=path)
+    pl = ConsensusObcaPlanner(**prof, device=cuda)
     total = thomas.launches
-    with pytest.raises(ValueError, match="B <= "):
-        thomas.block_thomas_solve(d, u, r, dtype != torch.float64)
-    assert thomas.launches == total
+    tail_st, tail_its, _, _ = pl.run(n_steps=4, checkpoint_path=path,
+                                     resume=True)
+    torch.cuda.synchronize()
+    assert thomas.launches - total == pl.block_solves > 0
+    assert np.array_equal(tail_st, full_st[2:])
+    assert np.array_equal(tail_its, full_its[2:])
+    assert pl.carry[0].device.type == "cuda"
 
 
 @pytest.mark.cuda
@@ -320,12 +372,21 @@ def test_wrapper_checks_on_cuda(cuda):
         thomas.block_thomas_solve(d.transpose(-1, -2), u, r)
     with pytest.raises(ValueError, match="one device"):
         thomas.block_thomas_solve(d, u, r.cpu())
-    big = 200
+    # 200 wide, past the wide kernel's shared memory, is the big kernel's
+    # (its tile in the device workspace); 4000 wide, whose pivot rows alone
+    # pass the shared-memory limit, is refused before anything launches
+    d, u, r = _system(7, (1, 2, 200), "diag_dominant", torch.float64, cuda)
+    before = thomas.launches_by_kernel["big"]
+    assert bool(torch.isfinite(thomas.block_thomas_solve(d, u, r)).all())
+    assert thomas.launches_by_kernel["big"] == before + 1
+    huge = 4000
+    total = thomas.launches
     with pytest.raises(ValueError, match="shared memory"):
         thomas.block_thomas_solve(
-            torch.zeros(1, 2, big, big, dtype=torch.float64, device=cuda),
-            torch.zeros(1, 2, big, big, dtype=torch.float64, device=cuda),
-            torch.zeros(1, 2, big, dtype=torch.float64, device=cuda))
+            torch.zeros(1, 1, huge, huge, dtype=torch.float64, device=cuda),
+            torch.zeros(1, 1, huge, huge, dtype=torch.float64, device=cuda),
+            torch.zeros(1, 1, huge, dtype=torch.float64, device=cuda))
+    assert thomas.launches == total
 
 
 def _window_tool():

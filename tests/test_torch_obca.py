@@ -281,22 +281,20 @@ def test_other_dtypes_raise(dtype):
         TPlanner(device="cpu", dtype=dtype)
 
 
-def test_run_obca_rejects_unported_formulations():
+def test_run_obca_rejects_unported_formulations(tmp_path):
     """No formulation is refused any more: BILEVEL reaches the bilevel
     planner (on the CPU when asked; without a card the default device
-    raises, as for every planner). What ``run_obca`` still refuses is
-    plotting (ROADMAP queue 1 item 16)."""
+    raises, as for every planner), and ``plot_path`` draws its run."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             t_run_obca(tcfg.Formulation.BILEVEL, n_steps=1)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        t_run_obca(tcfg.Formulation.BILEVEL, n_steps=1, device="cpu",
-                   plot_path="x.png")
+    path = str(tmp_path / "bilevel.png")
     res = t_run_obca(tcfg.Formulation.BILEVEL, n_steps=1, device="cpu",
                      scfg=tcfg.SolverConfig(ip_iters=30, ip_tol=1e-6),
-                     n_rounds=1)
+                     n_rounds=1, plot_path=path)
     assert type(res.extras["planner"]).__name__ == "BilevelObcaPlanner"
     assert res.states.shape == (2, 2, 5) and np.all(np.isfinite(res.states))
+    assert os.path.getsize(path) > 0
 
 
 # -- float32 -----------------------------------------------------------------

@@ -210,18 +210,19 @@ def test_classic_refuses_the_pairwise_options():
                                   2)
 
 
-def test_aladin_layout_still_raises():
+def test_aladin_layout_still_raises(tmp_path):
     """``layout="aladin"`` dispatches to the ALADIN planner (its states
     include the start, its extras the planner and the iterations); it
     raises only where every layout does: on the default device without a
-    card, and for plotting (ROADMAP item 16)."""
+    card. ``plot_path`` draws its run."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run_pi_admm(layout="aladin", n_steps=1)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        run_pi_admm(layout="aladin", device="cpu", plot_path="x.png")
+    path = str(tmp_path / "aladin.png")
     res = run_pi_admm(layout="aladin", device="cpu", n_steps=2,
-                      scfg=tcfg.SolverConfig(ip_iters=25, ip_tol=1e-7))
+                      scfg=tcfg.SolverConfig(ip_iters=25, ip_tol=1e-7),
+                      plot_path=path)
+    assert os.path.getsize(path) > 0
     assert res.states.shape == (3, 2, 3) and np.all(np.isfinite(res.states))
     assert res.extras["iterations"].tolist() == [1, 1]
     assert type(res.extras["planner"]).__name__ == "AladinUnicyclePlanner"

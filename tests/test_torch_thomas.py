@@ -22,7 +22,7 @@ References:
   scaled residual ``|Ax - r| / (|A||x| + |r|)``, below 2e-6 and no more
   than 4 times the JAX solve's.
 
-The launch layouts of the two kernels (:func:`thomas.kernel_plan`) are plain
+The launch layouts of the three kernels (:func:`thomas.kernel_plan`) are plain
 Python and are checked here. The CUDA kernels themselves are held against
 the plain version in ``tests/test_torch_cuda.py``, which imports no JAX so
 it runs on the card.
@@ -263,10 +263,15 @@ def test_kernel_plan_shared_memory_layout():
     (torch.float64, False, 97), (torch.float64, True, 80),
     (torch.float32, False, 138), (torch.float32, True, 106)])
 def test_kernel_plan_raises_past_shared_memory(dtype, equilibrate, b_max):
+    """Past the wide kernel's widest class the big kernel takes over; the
+    wide kernel, asked for by name, still raises there."""
     assert thomas.kernel_plan(1, 7, b_max, dtype, equilibrate)[
         "kernel"] == "wide"
+    assert thomas.kernel_plan(1, 7, b_max + 1, dtype, equilibrate)[
+        "kernel"] == "big"
     with pytest.raises(ValueError, match=f"B <= {b_max}"):
-        thomas.kernel_plan(1, 7, b_max + 1, dtype, equilibrate)
+        thomas.kernel_plan(1, 7, b_max + 1, dtype, equilibrate,
+                           kernel="wide")
 
 
 def test_kernel_plan_override_and_its_checks():
@@ -279,11 +284,11 @@ def test_kernel_plan_override_and_its_checks():
 
 
 def test_launch_counts_reset():
-    thomas._count({"warp": 2, "wide": 1})
-    assert thomas.launches >= 3
+    thomas._count({"warp": 2, "wide": 1, "big": 1})
+    assert thomas.launches >= 4
     thomas.reset_counts()
     assert thomas.launches == 0
-    assert thomas.launches_by_kernel == {"warp": 0, "wide": 0}
+    assert thomas.launches_by_kernel == {"warp": 0, "wide": 0, "big": 0}
 
 
 # the wide kernel's layout over its whole range: widths 33-97 (float64) and
@@ -316,21 +321,28 @@ def test_wide_plan_over_its_range(dtype, equilibrate):
         assert plan["smem_bytes"] == thomas.wide_bytes(
             b, elem, plan["warps"], ncl, rpw, nt) <= thomas.H100_SMEM_LIMIT
     with pytest.raises(ValueError, match=f"B <= {b_max}"):
-        thomas.kernel_plan(1, 7, b_max + 1, dtype, equilibrate)
+        thomas.kernel_plan(1, 7, b_max + 1, dtype, equilibrate,
+                           kernel="wide")
 
 
 def test_wide_plan_raises_with_the_largest_width_that_fits():
-    """On a device with less shared memory the error names the largest
-    width any class still holds there, and that width is planned."""
+    """On a device with less shared memory the wide kernel's error names
+    the largest width any class still holds there, and that width is
+    planned; every width past it goes to the big kernel, its tile in the
+    device workspace."""
     limit = 64 * 1024
     with pytest.raises(ValueError, match=r"B <= (\d+)") as err:
-        thomas.kernel_plan(1, 7, 97, torch.float64, smem_limit=limit)
+        thomas.kernel_plan(1, 7, 97, torch.float64, kernel="wide",
+                           smem_limit=limit)
     b_max = int(err.value.args[0].rsplit("B <= ", 1)[1].split()[0])
     plan = thomas.kernel_plan(1, 7, b_max, torch.float64, smem_limit=limit)
-    assert plan["smem_bytes"] <= limit
+    assert plan["kernel"] == "wide" and plan["smem_bytes"] <= limit
     for b in range(b_max + 1, 98):
         with pytest.raises(ValueError):
-            thomas.kernel_plan(1, 7, b, torch.float64, smem_limit=limit)
+            thomas.kernel_plan(1, 7, b, torch.float64, kernel="wide",
+                               smem_limit=limit)
+        plan = thomas.kernel_plan(1, 7, b, torch.float64, smem_limit=limit)
+        assert plan["kernel"] == "big" and plan["smem_bytes"] <= limit
 
 
 def _first_largest_rule(c):

@@ -77,7 +77,10 @@ on the CPU through ``ConsensusObcaPlanner.run_scan(return_health=True)``, all
   ``tests/data/obca_centralized_ref.npz``;
 * ``centralized_v4``: one staged ``solve_at`` of the joint NLP at step 0
   with 3 and with 4 vehicles (``v3_*``, ``v4_*``; ``ip_iters`` 80 and 150,
-  the trips JAX needs there), saved as
+  the trips JAX needs there), and the 4-vehicle solve from starts moved by
+  1e-12 with 300 trips (``v4_moved_iterations``, ``_converged``,
+  ``_state_err``: the largest state distance from the unmoved solve), saved
+  as
   ``tests/data/obca_centralized_v4_ref.npz``;
 * ``bilevel``: ``run_obca(Formulation.BILEVEL | TIGHTENING |
   TIGHTENING_SLACK)``'s defaults (2 vehicles, horizon 8, ``min_dis`` 1.0,
@@ -94,7 +97,17 @@ on the CPU through ``ConsensusObcaPlanner.run_scan(return_health=True)``, all
   start moved by 1e-12, and those moved runs' ``moved_total_iterations``
   and ``moved_min_distance_m``) and ``run_obca(Formulation.ALADIN)``'s
   3-step dispatch of its ``test_driver_dispatch`` (``dispatch_*``), saved
-  as ``tests/data/aladin_ref.npz``.
+  as ``tests/data/aladin_ref.npz``;
+* ``checkpoint``: the checkpoint/resume configurations of
+  ``tests/test_driver_utils.py::TestEngineCheckpointResume`` (``CHECKPOINT``:
+  the consensus and bilevel planners, the ALADIN toy, the PI-ADMM engine in
+  the pairwise layout with the cross-step carry and in the classic layout),
+  each run uninterrupted (``<case>__states`` and ``<case>__iterations``;
+  ALADIN: ``__x``, ``__lam``, ``__ys``) and run to its ``ckpt_at`` step with
+  ``checkpoint_path``, the JAX ``save_carry`` file's leaves, leaf count,
+  structure string and step kept as ``<case>__leaf_<i>``,
+  ``__n_leaves``, ``__treedef``, ``__step``; saved as
+  ``tests/data/checkpoint_ref.npz`` (about a minute on the CPU).
 
 Each OBCA file holds
 
@@ -258,7 +271,12 @@ CENTRALIZED = dict(
                 scfg=dict(ip_iters=40, ip_tol=1e-6), warm_mode="previous",
                 steps=30))
 CENTRALIZED_V4 = dict(ocfg=dict(horizon=15, min_dis=1.0),
-                      ip_iters={3: 80, 4: 150})
+                      ip_iters={3: 80, 4: 150},
+                      # the 4-vehicle solve from starts moved by 1e-12, each
+                      # with 300 trips: where JAX itself converges to the
+                      # same optimum and where it does not
+                      moved=dict(noise=1e-12, seeds=[1, 2, 3, 4, 5, 6],
+                                 ip_iters=300))
 # the fixed-dual family: run_obca(BILEVEL | TIGHTENING | TIGHTENING_SLACK)'s
 # defaults (dlp_admm_tpu/mpc/driver.py:57-98: horizon 8, min_dis 1.0,
 # SolverConfig(), 3 bilevel rounds, T = 7 s and prob 0.99 for tightening),
@@ -277,6 +295,28 @@ ALADIN = dict(scfg=dict(ip_iters=25, ip_tol=1e-7), steps=45,
               dispatch=dict(scfg=dict(ip_iters=15, ip_tol=1e-6), steps=3),
               chaos_noise=1e-12, chaos_seeds=(1, 2), chaos_tol=1e-6)
 
+# the checkpoint/resume configurations of tests/test_driver_utils.py::
+# TestEngineCheckpointResume (and the classic PI-ADMM layout beside the
+# pairwise one, whose carry here includes the cross-step AdmmCarry): each
+# run uninterrupted for ``steps`` and checkpointed at ``ckpt_at``
+_PI_XT0 = [[-3.0, 0.0, 0.0], [0.0, 6.0, -1.5707963267948966]]
+CHECKPOINT = dict(
+    consensus=dict(ocfg=dict(horizon=5, max_admm_iters=2, rho=100.0),
+                   scfg=dict(ip_iters=5, ip_tol=1e-6), steps=4, ckpt_at=2),
+    bilevel=dict(ocfg=dict(horizon=5, min_dis=1.0),
+                 scfg=dict(ip_iters=5, ip_tol=1e-6), n_rounds=1, steps=4,
+                 ckpt_at=2),
+    aladin=dict(a_mats=[[[1.0]], [[-1.0]]], targets=[[3.0], [7.0]],
+                rho=1.0, mu=1e4, scfg=dict(ip_iters=25, ip_tol=1e-9),
+                steps=6, ckpt_at=2),
+    pi_admm=dict(cfg=dict(iter_num=4), scfg=dict(qp_iters=120, qp_tol=1e-6),
+                 layout="pairwise", engine=dict(carry_admm_state=True),
+                 xt0=_PI_XT0, steps=6, ckpt_at=2),
+    pi_admm_classic=dict(cfg=dict(iter_num=4),
+                         scfg=dict(qp_iters=120, qp_tol=1e-6),
+                         layout="classic", engine={}, xt0=_PI_XT0, steps=6,
+                         ckpt_at=2))
+
 
 def default_out(name):
     if name in PI_ADMM_LANES:
@@ -288,7 +328,7 @@ def default_out(name):
                             "consensus_spmd_cases_ref.npz")
     if name == "classic":
         return os.path.join(ROOT, "tests", "data", "pi_admm_classic_ref.npz")
-    if name in ("bilevel", "aladin"):
+    if name in ("bilevel", "aladin", "checkpoint"):
         return os.path.join(ROOT, "tests", "data", f"{name}_ref.npz")
     if name.startswith("centralized"):
         return os.path.join(ROOT, "tests", "data",
@@ -802,6 +842,21 @@ def write_centralized_v4(out, commit):
                       f"v{v}_kkt": np.asarray(sol.kkt_error),
                       f"v{v}_converged": np.asarray(sol.converged),
                       f"v{v}_seconds": np.asarray(time.perf_counter() - t0)})
+    m = b["moved"]
+    pl = _centralized(dict(ocfg=dict(b["ocfg"], num_veh=4),
+                           scfg=dict(ip_iters=m["ip_iters"])))
+    moved = []
+    for sd in m["seeds"]:
+        init = np.asarray(pl.refs[:, 0, :])
+        init = init + m["noise"] * np.random.default_rng(sd).normal(
+            size=init.shape)
+        xs, _, _, sol = pl.solve_at(init, 0)
+        moved.append((int(sol.iterations), bool(sol.converged),
+                      float(np.abs(np.asarray(xs)
+                                   - extra["v4_states"]).max())))
+    extra.update(v4_moved_iterations=np.asarray([r[0] for r in moved]),
+                 v4_moved_converged=np.asarray([r[1] for r in moved]),
+                 v4_moved_state_err=np.asarray([r[2] for r in moved]))
     os.makedirs(os.path.dirname(out), exist_ok=True)
     np.savez_compressed(out, **extra,
                         profile=np.asarray(json.dumps(
@@ -971,11 +1026,91 @@ def write_aladin(out, commit, noise=0.0, seed=0):
         commit=commit)))
 
 
+def _checkpoint_case(name, d):
+    """One case of ``CHECKPOINT``: the uninterrupted run and the step
+    ``ckpt_at`` checkpoint of the JAX planner, as ``{key: array}``."""
+    import jax.numpy as jnp
+    from dlp_admm_tpu.config import DualUpdateConfig, PiAdmmConfig
+    from dlp_admm_tpu.models.aladin import AladinEngine, AladinProblem
+    from dlp_admm_tpu.models.bilevel import BilevelObcaPlanner
+    from dlp_admm_tpu.models.pi_admm import PiAdmmEngine
+    c = CHECKPOINT[name]
+    path = os.path.join(d, f"{name}.npz")
+    out = {}
+    if name == "consensus":
+        pl = ConsensusObcaPlanner(ObcaConfig(**c["ocfg"]),
+                                  scfg=SolverConfig(**c["scfg"]))
+        states, its, _, _ = pl.run(n_steps=c["steps"])
+        pl.run(n_steps=c["ckpt_at"], checkpoint_path=path)
+        out.update(states=states, iterations=its)
+    elif name == "bilevel":
+        pl = BilevelObcaPlanner(ObcaConfig(**c["ocfg"]),
+                                scfg=SolverConfig(**c["scfg"]),
+                                n_rounds=c["n_rounds"])
+        states, _ = pl.run(n_steps=c["steps"])
+        pl.run(n_steps=c["ckpt_at"], checkpoint_path=path)
+        out.update(states=states)
+    elif name == "aladin":
+        prob = AladinProblem(
+            f=lambda y, p: jnp.sum((y - p) ** 2),
+            h=lambda y, p: jnp.zeros((0,), y.dtype),
+            a_mats=jnp.asarray(np.asarray(c["a_mats"])),
+            b=jnp.zeros(1))
+        eng = AladinEngine(prob, rho=c["rho"], mu=c["mu"],
+                           scfg=SolverConfig(**c["scfg"]))
+        targets = jnp.asarray(np.asarray(c["targets"]))
+        x0 = jnp.zeros(targets.shape)
+        st, ys = eng.run(x0, targets, n_iters=c["steps"], tol=None)
+        eng.run(x0, targets, n_iters=c["ckpt_at"], tol=None,
+                checkpoint_path=path)
+        out.update(x=np.asarray(st.x), lam=np.asarray(st.lam),
+                   ys=np.asarray(ys))
+    else:
+        eng = PiAdmmEngine(PiAdmmConfig(**c["cfg"]), DualUpdateConfig(),
+                           SolverConfig(**c["scfg"]), layout=c["layout"],
+                           **c["engine"])
+        xt0 = np.asarray(c["xt0"])
+        rec = eng.run(xt0=xt0, n_steps=c["steps"])
+        eng.run(xt0=xt0, n_steps=c["ckpt_at"], checkpoint_path=path)
+        out.update(states=np.asarray(rec.xt),
+                   iterations=np.asarray(rec.iterations))
+    data = np.load(path)
+    with open(path + ".tree") as f:
+        tree = json.load(f)
+    for i in range(tree["n_leaves"]):
+        out[f"leaf_{i}"] = data[f"leaf_{i}"]
+    out.update(n_leaves=np.asarray(tree["n_leaves"]),
+               treedef=np.asarray(tree["treedef"]),
+               step=data["__step__"])
+    return {f"{name}__{k}": np.asarray(v) for k, v in out.items()}
+
+
+def write_checkpoint(out, commit):
+    """Every case of ``CHECKPOINT`` (see the module doc)."""
+    import tempfile
+    t0 = time.perf_counter()
+    arrays = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name in CHECKPOINT:
+            arrays.update(_checkpoint_case(name, d))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(
+        out, **arrays,
+        profile=np.asarray(json.dumps(CHECKPOINT, sort_keys=True)),
+        commit=np.asarray(commit))
+    print(json.dumps(dict(
+        out=os.path.relpath(out, ROOT), profile="checkpoint",
+        seconds=round(time.perf_counter() - t0, 1),
+        n_leaves={n: int(arrays[f"{n}__n_leaves"]) for n in CHECKPOINT},
+        commit=commit)))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", choices=sorted(PROFILES) + sorted(
         PI_ADMM_LANES) + ["batch", "spmd", "classic", "centralized",
-                          "centralized_v4", "bilevel", "aladin"],
+                          "centralized_v4", "bilevel", "aladin",
+                          "checkpoint"],
                     default="f64")
     ap.add_argument("--steps", type=int, default=None,
                     help="MPC steps (default: the whole 42-step run)")
@@ -1008,6 +1143,8 @@ def main():
         return write_bilevel(args.out, commit)
     if args.profile == "aladin":
         return write_aladin(args.out, commit, args.noise, args.seed)
+    if args.profile == "checkpoint":
+        return write_checkpoint(args.out, commit)
     if args.profile in PI_ADMM_LANES:
         return write_pi_admm(args.profile, args.out, commit, args.noise,
                              args.seed)

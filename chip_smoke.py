@@ -3,29 +3,36 @@
 Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
 
 1. device: a CUDA card is required; prints its name and power limit;
-2. build: compiles the three block-Thomas kernels (``dlp_admm_torch/csrc/``:
+2. build: compiles the four block-Thomas kernels (``dlp_admm_torch/csrc/``:
    ``warp``, one warp per system for B <= 32, ``wide``, one block per
-   system up to its width classes, and ``big``, one block per system past
-   them, each built once per element type) for ``sm_90a``, one ``nvcc`` per
-   library, side by side; prints the build time and what ``ptxas`` says,
-   and fails if the warp kernel at the flagship's width bound, a wide-kernel
-   build that a driven path launches or a big-kernel build spills registers
-   (the other wide builds' spills are printed);
+   system up to its width classes, ``cluster``, a thread-block cluster per
+   system past them as far as the cluster holds the tile on chip, and
+   ``big``, one block per system past that, each built once per element
+   type) for ``sm_90a``, one ``nvcc`` per library, side by side; prints the
+   build time and what ``ptxas`` says, and fails if the warp kernel at the
+   flagship's width bound, a wide-kernel build that a driven path launches,
+   a cluster-kernel or a big-kernel build spills registers (the other wide
+   builds' spills are printed); prints how many clusters of the cluster
+   kernel's plans the card runs at once;
 3. kernel vs plain version on the card, float64 and float32, plain and
    equilibrated, at (S, T, B) = (2, 7, 19), (1, 7, 20), (32, 7, 19),
    (256, 7, 19) (warp kernel, and the wide kernel forced onto the same
    shapes), (4, 7, 33), (4, 7, 43), (2, 7, 61), (1, 7, 80), (2, 7, 80),
-   (1, 7, 97) (wide kernel; float64 equilibrated past 80 goes to the big
-   kernel), (16, 7, 20) and, at the recursion length T = 14 of the
+   (1, 7, 97) (wide kernel; float64 equilibrated past 80 goes to the
+   cluster kernel), (16, 7, 20) and, at the recursion length T = 14 of the
    centralized planner, (1, 14, 22), (1, 14, 34), (1, 14, 45), (1, 14, 66),
-   (1, 14, 76), and (1, 14, 108) (the 4-vehicle centralized width) and
-   (2, 7, 264) (the 8-vehicle consensus edge width), which only the big
-   kernel holds, on diagonally dominant, KKT-style saddle, zero-leading-block saddle and
+   (1, 14, 76), and (1, 14, 108) (the 4-vehicle centralized width),
+   (2, 7, 264) (synthetic) and (1, 7, 320) (the 8-vehicle consensus edge
+   width), which the cluster kernel solves, with the big kernel forced
+   onto the same calls beside it, on diagonally dominant, KKT-style saddle, zero-leading-block saddle and
    (equilibrated only) badly scaled systems made with numpy from a fixed
    seed (tolerances below);
    per shape the device time of both kernels in turns, of the plain version
    and of one ``torch.linalg.solve`` on the assembled dense matrix (a
-   yardstick the port never calls), beside the roofline bound;
+   yardstick the port never calls), beside the roofline bound; the cluster
+   kernel also forced at (1, 14, 66) and (1, 7, 80) beside the wide kernel
+   (printed, for comparison), and its clock64() split at (1, 14, 108) and
+   (2, 7, 264);
 4. the float64 slice: ``dlp_admm_torch.mpc.run_obca(Formulation.CONSENSUS)``
    on the card with the flagship's float64 profile, first 6 MPC steps, held
    against the committed JAX run ``tests/data/consensus_obca_f64_ref.npz``
@@ -98,7 +105,7 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    replays printed. One 3-vehicle ``solve_at`` (K1 at (1, 14, 66)) on the
    kernels, on their plain version and against
    ``tests/data/obca_centralized_v4_ref.npz``; the same for 4 vehicles (K1
-   at (1, 14, 108), the big kernel, launches equal to its block solves;
+   at (1, 14, 108), the cluster kernel, launches equal to its block solves;
    JAX's own solve is chaotic there, 4 of 6 starts moved by 1e-12 ending
    7-9 m away, so its convergence and distance from JAX and from the
    plain-version run are printed, not gated; JAX's 6 moved starts run on
@@ -109,7 +116,11 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    (finite states, footprint gap >= 0.8 ``min_dis``, >= 24 of 30 steps
    converged, overtake gain > 15 m), JAX's numbers beside; 3 float32 steps
    (``ip_tol=1e-4``, the equilibrated kernel at T = 14) on
-   ``tests/test_obca.py:18-27``'s tracking gates;
+   ``tests/test_obca.py:18-27``'s tracking gates; one consensus MPC step
+   of 8 vehicles (``tools/exp_obca_batch.py v8``'s planner settings,
+   float64, ADMM cap 2), K1 at (8, 7, 61) (wide) and (1, 7, 320) (cluster),
+   on the kernels and on their plain version: states within 1e-9, equal
+   ADMM iterations and IP trips, launches equal to block solves;
 12. the classic PI-ADMM layout, ``run_pi_admm()`` with its defaults (2
    vehicles crossing, horizon 5, float64), its first 23 steps (through
    JAX's own chaotic step, 22; ``--full`` all 45) held against
@@ -201,7 +212,7 @@ BATCH_SHAPES = ((16, 7, 20),)
 # B > 32: the 4-vehicle local and edge widths 33 and 80, the 3-vehicle edge
 # width 45 (at 43), the 8-vehicle local width 61, and 97, the float64 bound
 # (float64 equilibrated, 80 is the bound and a width the earlier wide
-# kernel did not hold; past it the big kernel solves)
+# kernel did not hold; past it the cluster kernel solves)
 WIDE_SHAPES = ((4, 7, 33), (4, 7, 43), (2, 7, 61), (1, 7, 80), (2, 7, 80),
                (1, 7, 97))
 # T = 14 (horizon 15): the centralized planner's staged KKT blocks at 2 and
@@ -211,10 +222,18 @@ WIDE_SHAPES = ((4, 7, 33), (4, 7, 43), (2, 7, 61), (1, 7, 80), (2, 7, 80),
 # and 80) at the recursion length no earlier path drove
 T14_SHAPES = ((1, 14, 22), (1, 14, 34), (1, 14, 45), (1, 14, 66),
               (1, 14, 76))
-# past the wide kernel's classes, where the big kernel runs: the 4-vehicle
-# centralized KKT width (past the wide kernel's float64 range, 97, and its
-# float32 equilibrated range, 106) and the 8-vehicle consensus edge width
-BIG_SHAPES = ((1, 14, 108), (2, 7, 264))
+# past the wide kernel's classes, where the cluster kernel runs (the big
+# kernel forced beside it): the 4-vehicle centralized KKT width (past the
+# wide kernel's float64 range, 97, and its float32 equilibrated range, 106),
+# a synthetic 264 and the 8-vehicle consensus edge width, 5V + 10 V(V-1)/2
+BIG_SHAPES = ((1, 14, 108), (2, 7, 264), (1, 7, 320))
+# the wide kernel's path shapes, where the cluster kernel is also timed
+# (printed, not gated)
+CLUSTER_FORCED_SHAPES = ((1, 14, 66), (1, 7, 80))
+# one consensus MPC step of 8 vehicles: tools/exp_obca_batch.py v8's planner
+# settings in float64 (the staged edge, ADMM cap 2); its solves on the
+# kernels and on the plain version part only at the rounding level
+V8_STATE_TOL = 1e-9
 KINDS = ("diag_dominant", "kkt_saddle", "zero_lead")
 EQ_KINDS = KINDS + ("badly_scaled",)
 # (kind, equilibrate): the badly scaled kind is what equilibration is for;
@@ -309,10 +328,11 @@ ALADIN_MIN_DIST = 1.5
 ALADIN_MAX_TOTAL_ITERS = 500
 ALADIN_SMOKE_STEPS = 22
 DEVICE = "cuda"
-# NVIDIA H100 SXM data sheet: HBM3 rate and the vector (non-tensor-core)
-# peaks; FP64 vector is half the FP32 rate
+# NVIDIA H100 SXM data sheet: HBM3 rate and the card's peaks for the type:
+# FP64 on the tensor cores (67 TFLOP/s; the vector units give half that),
+# FP32 outside them (TF32 keeps too few digits for these solves)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float64: 33.5e12, torch.float32: 67.0e12}
+PEAK_FLOPS = {torch.float64: 67.0e12, torch.float32: 67.0e12}
 SM_COUNT = 132          # one system runs on one SM: its bound is 1/132 of that
 REPLACES = "dlp_admm_tpu/solvers/thomas_pallas.py:145"
 # the 42-step float64 run of the block-per-system kernel the port began
@@ -462,37 +482,44 @@ def graph_ms(fn, reps=20):
     return time_ms(graph.replay, 5) / reps
 
 
-def timings(thomas, diag, upper, rhs, equilibrate):
-    """Device times of one solve: the kernel the wrapper picks (``ms``), the
-    block-per-system kernel forced onto the same call where the wrapper
-    picks the warp kernel (``wide_ms``; the two timed in turns: warp, wide,
-    wide, warp), the plain version, and the library yardstick."""
+def timings(thomas, diag, upper, rhs, equilibrate, other=None):
+    """Device times of one solve: the kernel the wrapper picks (``ms``), a
+    second kernel forced onto the same call (``<other>_ms``: the wide
+    kernel where the wrapper picks the warp kernel, the big kernel where it
+    picks the cluster kernel, unless ``other`` names one; the two timed in
+    turns: picked, other, other, picked), the plain version, and the
+    library yardstick."""
     s, t, b = rhs.shape
 
     def run(kernel):
         return lambda: thomas.launch_kernel(diag, upper, rhs, equilibrate,
                                             kernel)
 
+    def reps(kernel):       # a big-kernel call takes tens of milliseconds
+        return 2 if kernel == "big" else 20
+
     name = thomas.kernel_plan(s, t, b, rhs.dtype, equilibrate)["kernel"]
+    other = other or {"warp": "wide", "cluster": "big"}.get(name)
     row = {}
-    if name == "warp":
-        turns = [graph_ms(run(k)) for k in ("warp", "wide", "wide", "warp")]
-        row.update(ms=0.5 * (turns[0] + turns[3]),
-                   wide_ms=0.5 * (turns[1] + turns[2]), ms_turns=turns)
+    if other:
+        turns = [graph_ms(run(k), reps(k))
+                 for k in (name, other, other, name)]
+        row.update({"ms": 0.5 * (turns[0] + turns[3]),
+                    f"{other}_ms": 0.5 * (turns[1] + turns[2]),
+                    "ms_turns": turns})
     else:
-        # past the wide classes a call takes milliseconds: fewer per graph
-        row.update(ms=graph_ms(run(name), reps=2 if name == "big" else 20))
+        row.update(ms=graph_ms(run(name), reps(name)))
     row["us_per_pivot"] = 1e3 * row["ms"] / (t * b)
     # past the wide classes one plain call is tens of thousands of kernels:
     # a graph of one call, replayed, instead of five
     row["plain_ms"] = graph_ms(
         lambda: thomas.block_thomas_plain(diag, upper, rhs, equilibrate),
-        reps=1 if name == "big" else 5)
+        reps=1 if b > 97 else 5)
     a, r = dense_system(diag, upper, rhs)
     # eager calls between two events: the solver's error check reads the
     # device, which a stream capture does not allow
     row["library_ms"] = time_ms(lambda: torch.linalg.solve(a, r), 20)
-    row.update(bound(s, t, b, rhs.dtype, equilibrate))
+    row.update(bound(s, t, b, rhs.dtype, equilibrate), picked=name)
     return row
 
 
@@ -511,7 +538,7 @@ def backward_error(diag, upper, rhs, x):
 
 
 def compare(thomas, diag, upper, rhs, label, equilibrate=False, kernel=None,
-            timed=False, run_block=False, rowwise=False):
+            timed=False, run_block=False, rowwise=False, other=None):
     """Kernel vs plain version on the same card tensors; raises past TOL
     (``run_block``: past RUN_TOL, or a backward error above 4 times the
     plain version's and 10 units of rounding; componentwise, or with
@@ -545,7 +572,7 @@ def compare(thomas, diag, upper, rhs, label, equilibrate=False, kernel=None,
              row["library_rowwise_backward_err"]) = backward_error(
                 diag, upper, rhs, torch.linalg.solve(a, r))
     if timed:
-        row.update(timings(thomas, diag, upper, rhs, equilibrate))
+        row.update(timings(thomas, diag, upper, rhs, equilibrate, other))
     log(json.dumps(row))
     if not rel_err <= tol:
         raise RuntimeError(f"{label}: kernel vs plain rel err {rel_err:.3e} "
@@ -565,7 +592,8 @@ def report_build(logs, wide_builds, main_path_plans):
     B = 19 and 20) or a build of the wide kernel that a driven path launches
     (``main_path_plans``: (dtype, equilibrated, plan); and the profiling
     builds) uses a stack frame or spills; the other wide builds' spills are
-    printed; every big-kernel build must be free of spills."""
+    printed; every big- and cluster-kernel build must be free of
+    spills."""
     rows = []
     for name, text in logs.items():
         entry = None
@@ -607,6 +635,13 @@ def report_build(logs, wide_builds, main_path_plans):
         if m:
             r.update(dtype="f64" if m.group(2) == "d" else "f32",
                      equilibrated=m.group(1) == "1", big=True)
+        # <EQ, PROF>, the element type in Params<T>
+        m = re.search(r"thomas_cluster_kernelILb([01])ELb([01])E\S*?"
+                      r"ParamsI([df])E", r["function"])
+        if m:
+            r.update(dtype="f64" if m.group(3) == "d" else "f32",
+                     equilibrated=m.group(1) == "1",
+                     profiling=m.group(2) == "1", cluster=True)
         log("  " + json.dumps(r))
     flagship = [r for r in rows if r.get("bp") == 20 and not r["profiling"]]
     if len(flagship) != 4:
@@ -632,7 +667,11 @@ def report_build(logs, wide_builds, main_path_plans):
     if len(big) != 4:
         raise RuntimeError(f"expected 4 big-kernel builds in the compiler's "
                            f"output, found {len(big)}")
-    bad = [r for r in flagship + on_path + big if spills(r)]
+    cluster = [r for r in rows if r.get("cluster")]
+    if len(cluster) != 8:
+        raise RuntimeError(f"expected 8 cluster-kernel builds in the "
+                           f"compiler's output, found {len(cluster)}")
+    bad = [r for r in flagship + on_path + big + cluster if spills(r)]
     if bad:
         raise RuntimeError(f"a kernel build spills: {bad}")
     off = [r for r in wide if spills(r) and r not in on_path]
@@ -896,6 +935,22 @@ def smoke(args, records):
             (torch.float64, False, 66), (torch.float32, True, 34))]
     records.update(build_s=build_s, ptxas=report_build(ptxas, wide_builds,
                                                        main_path_plans))
+    # clusters of the cluster kernel's plans the card runs at once; a launch
+    # of S systems takes ceil(S / that) waves
+    occ = records["cluster_occupancy"] = []
+    for b in (108, 264, 320):
+        for dt, eq in ((torch.float64, False), (torch.float32, True)):
+            plan = thomas.kernel_plan(1, 7, b, dt, eq)
+            n = thomas.cluster_max_active(b, dt, eq)
+            row = dict(b=b, dtype=str(dt)[6:], equilibrated=eq,
+                       cluster=plan["cluster"], prefetch=plan["prefetch"],
+                       smem_bytes=plan["smem_bytes"], max_active_clusters=n,
+                       waves={sys: -(-sys // max(n, 1)) for sys in (1, 2, 16)})
+            log("  " + json.dumps(row))
+            occ.append(row)
+            if n < 1:
+                raise RuntimeError(f"the card runs no cluster of the plan "
+                                   f"{plan}")
 
     # -- 3. kernel vs plain version -------------------------------------
     rng = np.random.default_rng(0)
@@ -919,6 +974,20 @@ def smoke(args, records):
                 if b <= thomas.WARP_MAX_B:
                     synth.append(compare(thomas, d, u, r, label, eq,
                                          kernel="wide"))
+                if (s, t, b) in BIG_SHAPES:
+                    synth.append(compare(thomas, d, u, r, label, eq,
+                                         kernel="big"))
+        # the cluster kernel at the wide kernel's path shapes, in the variant
+        # the staged solver asks for (timed beside the wide kernel)
+        for s, t, b in CLUSTER_FORCED_SHAPES:
+            eq = dtype != torch.float64
+            d, u, r = (torch.as_tensor(a, dtype=dtype, device=dev)
+                       for a in make_system(rng, s, t, b, "diag_dominant"))
+            synth.append(compare(
+                thomas, d, u, r, f"diag_dominant S={s} T={t} B={b} "
+                f"{str(dtype)[6:]}{' equilibrated' if eq else ''}", eq,
+                kernel="cluster", timed=True, other="cluster"))
+    records["cluster_clock_split"] = cluster_split(thomas, rng, dev)
 
     # -- 4, 5. the slices -----------------------------------------------
     systems = {}
@@ -1025,8 +1094,10 @@ def smoke(args, records):
         kernel_entry("wide", real, paths, "multi-vehicle V=4 float64",
                      (1, 7, 80), at_shapes=(
                          ("centralized float64", (1, 14, 34)),)),
-        kernel_entry("big", real, paths, "centralized V=4 float64",
-                     (1, 14, 108))]}
+        kernel_entry("cluster", real, paths, "centralized V=4 float64",
+                     (1, 14, 108), at_shapes=(
+                         ("consensus V=8 float64", (1, 7, 320)),)),
+        big_entry(synth, paths)]}
     wall = time.perf_counter() - t_start
     records.update(kernels, paths=paths, device=kind, nvidia_smi=smi,
                    wall_s=wall)
@@ -1589,6 +1660,7 @@ def centralized_solve_at(thomas, ip_staged, paths, systems, ref, prof, v,
             runs.append(dict(seed=seed, iterations=int(solm.iterations),
                              converged=bool(solm.converged),
                              max_state_err_vs_jax=err, wall_s=wm,
+                             launches=cm, block_solves=plm.block_solves,
                              at_jax=bool(solm.converged)
                              and err <= STATE_TOL))
         jax_at = int(np.sum(np.asarray(ref[moved])
@@ -1674,7 +1746,7 @@ def centralized_path(thomas, ip_staged, paths, systems, smi):
     # -- 11.2 3 and 4 vehicles: K1 at (1, 14, 66) and (1, 14, 108) -------
     v4 = np.load(FIXTURE_CEN_V4)
     v4prof = json.loads(str(v4["profile"]))
-    for v, kernel, width in ((3, "wide", 66), (4, "big", 108)):
+    for v, kernel, width in ((3, "wide", 66), (4, "cluster", 108)):
         out[f"v{v}"] = centralized_solve_at(
             thomas, ip_staged, paths, systems, v4, v4prof, v, kernel, width,
             plain)
@@ -1728,7 +1800,81 @@ def centralized_path(thomas, ip_staged, paths, systems, smi):
     if not all(gates.values()):
         raise RuntimeError(f"{name} fails the tracking gates: {gates}")
     out["float32"] = row
+
+    # -- 11.5 one consensus step of 8 vehicles (the 320-wide edge) --------
+    out["consensus V=8"] = v8_step(thomas, ip_staged, paths, systems, smi)
     return out
+
+
+def v8_step(thomas, ip_staged, paths, systems, smi):
+    """One consensus MPC step of 8 vehicles with ``tools/exp_obca_batch.py
+    v8``'s planner settings (horizon 8, ``min_dis`` 0.1, rho 100, prox 700
+    x 1.5, ``ip_iters`` 40, ``ip_tol`` 1e-4) in float64, the staged edge,
+    ADMM cap 2: its locals solve at (8, 7, 61) and its edge at (1, 7, 320).
+    On the kernels and on their plain version, on the card: states within
+    V8_STATE_TOL, equal ADMM iterations and IP trips, launches equal to
+    block solves, the cluster kernel launched."""
+    from dlp_admm_torch.config import Formulation, ObcaConfig, SolverConfig
+    from dlp_admm_torch.models import obca
+    from dlp_admm_torch.mpc import run_obca
+    name = "consensus V=8 float64"
+
+    def run():
+        return run_obca(
+            Formulation.CONSENSUS,
+            ocfg=ObcaConfig(num_veh=8, horizon=8, min_dis=0.1, rho=100.0,
+                            max_admm_iters=2),
+            scfg=SolverConfig(ip_iters=40, ip_tol=1e-4), n_steps=1,
+            dtype=torch.float64, local_prox=700.0, prox_growth=1.5,
+            prox_tau_max=1.0e9)
+
+    def plain(diag, upper, rhs):
+        return thomas.block_thomas_plain(diag, upper, rhs, False)
+
+    def counted(solve=None):
+        """drive() with every staged solve's IP trips recorded, and the
+        wall between two synchronizes."""
+        trips, keep = [], obca.solve_staged
+
+        def solve_staged(*a, **kw):
+            sol = keep(*a, **kw)
+            trips.append(int(sol.iterations.max()))
+            return sol
+        obca.solve_staged = solve_staged
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, counts, kkt = drive(thomas, ip_staged, run, solve)
+            wall = time.perf_counter() - t0
+        finally:
+            obca.solve_staged = keep
+        return res, counts, kkt, trips, wall
+
+    res, counts, kkt, trips, wall = counted()
+    pl = res.extras["planner"]
+    check_counts(name, counts, pl.block_solves, ("cluster",))
+    want, plain_counts, _, plain_trips, plain_wall = counted(plain)
+    if sum(plain_counts.values()):
+        raise RuntimeError(f"{name}: the plain run launched {plain_counts}")
+    if res.states.shape != (2, 8, 5) or not np.all(np.isfinite(res.states)):
+        raise RuntimeError(f"{name}: states {res.states.shape} not finite")
+    err = float(np.abs(res.states - want.states).max())
+    systems[name] = kkt
+    paths[name] = counts
+    row = dict(kkt_shapes=sorted(kkt), launches=counts,
+               block_solves=pl.block_solves,
+               plain_block_solves=want.extras["planner"].block_solves,
+               iterations=res.metrics.iter_history,
+               plain_iterations=want.metrics.iter_history, ip_trips=trips,
+               plain_ip_trips=plain_trips, max_state_err_vs_plain=err,
+               wall_s=wall, plain_wall_s=plain_wall, nvidia_smi=smi)
+    log(f"{name}: " + json.dumps(row))
+    if not (err <= V8_STATE_TOL and trips == plain_trips
+            and res.metrics.iter_history == want.metrics.iter_history):
+        raise RuntimeError(f"{name}: differs from the plain-version run "
+                           f"(states {err:.3e}, trips {trips} against "
+                           f"{plain_trips})")
+    return row
 
 
 def k1_free_run(thomas, name, paths, run, owner):
@@ -2015,6 +2161,9 @@ def aladin_path(thomas, paths, smi, full):
         iterations=dits.tolist(), max_state_err=derr, wall_s=dwall))
 
 
+CLUSTER_PHASES = ("panel factor", "publish and cluster barrier",
+                  "panel updates", "stage product", "copies",
+                  "back substitution")
 PHASES = {"warp": ("load", "equilibrate", "eliminate", "refine",
                    "store and product", "back substitution"),
           "wide": ("load and product", "equilibrate", "eliminate", "refine",
@@ -2224,25 +2373,73 @@ def clock_split(thomas, systems):
     """The profiling builds' clock64() split of one solve of a run's KKT
     system: the warp kernel on the float64 and float32 slices' local
     systems, the wide kernel on the 4-vehicle edge system (float64) and the
-    3-vehicle edge system (float32, equilibrated); clocks of the first
+    3-vehicle edge system (float32, equilibrated), the cluster kernel on the
+    4-vehicle centralized block and the 8-vehicle edge; clocks of the first
     system, and per pivot step in the elimination."""
     out = []
     for name, path, key in (
             ("warp", "slice float64", (2, 7, 19)),
             ("warp", "slice float32", (2, 7, 19)),
             ("wide", "multi-vehicle V=4 float64", (1, 7, 80)),
-            ("wide", "multi-vehicle V=3 float32", (1, 7, 45))):
+            ("wide", "multi-vehicle V=3 float32", (1, 7, 45)),
+            ("cluster", "centralized V=4 float64", (1, 14, 108)),
+            ("cluster", "consensus V=8 float64", (1, 7, 320))):
         d, u, r = systems[path][key]
         eq = r.dtype != torch.float64
         _, clocks = thomas.launch_kernel(d, u, r, eq, kernel=name,
                                          profile=True)
-        c = clocks[0].tolist()
-        row = dict(kernel=name, path=path, shape=list(key),
-                   dtype=str(r.dtype)[6:], clocks=dict(zip(PHASES[name], c)),
-                   total_clocks=sum(c),
-                   eliminate_clocks_per_pivot=c[2] / (key[1] * key[2]))
+        if name == "cluster":
+            row = dict(cluster_clock_row(clocks, key), path=path)
+        else:
+            c = clocks[0].tolist()
+            row = dict(kernel=name, path=path, shape=list(key),
+                       dtype=str(r.dtype)[6:],
+                       clocks=dict(zip(PHASES[name], c)),
+                       total_clocks=sum(c),
+                       eliminate_clocks_per_pivot=c[2] / (key[1] * key[2]))
         log(json.dumps(row))
         out.append(row)
+    return out
+
+
+def cluster_clock_row(clocks, shape):
+    """The cluster kernel's clocks ``[S, R, 6]`` of one solve, first system:
+    per CTA, the first CTA's per stage, and the panel factors summed over
+    the CTAs (they are one serial chain: a CTA factors its panels while the
+    others wait at the next cluster barrier)."""
+    c = clocks[0].cpu().numpy()
+    t, b = shape[1], shape[2]
+    first = dict(zip(CLUSTER_PHASES, c[0].tolist()))
+    return dict(kernel="cluster", shape=list(shape), cluster=int(c.shape[0]),
+                first_cta=first,
+                first_cta_per_stage={k: v / t for k, v in first.items()},
+                per_cta=[dict(zip(CLUSTER_PHASES, x)) for x in c.tolist()],
+                factor_chain_clocks=int(c[:, 0].sum()),
+                factor_clocks_per_pivot=float(c[:, 0].sum()) / (t * b),
+                first_cta_total=int(c[0].sum()))
+
+
+def cluster_split(thomas, rng, dev):
+    """Phase 3's clock64() split of the cluster kernel at (1, 14, 108) and
+    (2, 7, 264) on KKT-style saddle systems, float64 and float32
+    equilibrated; the profiling build gives the same bits as the other."""
+    out = []
+    for shape in ((1, 14, 108), (2, 7, 264)):
+        for dtype in (torch.float64, torch.float32):
+            eq = dtype != torch.float64
+            d, u, r = (torch.as_tensor(a, dtype=dtype, device=dev)
+                       for a in make_system(rng, *shape, "kkt_saddle"))
+            got, clocks = thomas.launch_kernel(d, u, r, eq, kernel="cluster",
+                                               profile=True)
+            want = thomas.launch_kernel(d, u, r, eq, kernel="cluster")
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"the cluster kernel's profiling build "
+                                   f"differs at {shape} {dtype}")
+            row = dict(cluster_clock_row(clocks, shape),
+                       dtype=str(dtype)[6:], equilibrated=eq)
+            log(json.dumps(row))
+            out.append(row)
     return out
 
 
@@ -2280,6 +2477,32 @@ def kernel_entry(name, real, paths, path, shape, at_shapes=()):
                                  launches=paths[p][name])
                             for p, shp in at_shapes]
     return out
+
+
+def big_entry(synth, paths):
+    """The big kernel's line. No driven path launches it (the cluster kernel
+    holds every width a path gives, and the big kernel takes only widths
+    past the cluster's reach), so its numbers are phase 3's, the kernel
+    forced onto the 4-vehicle centralized shape (1, 14, 108) in float64
+    beside the cluster kernel; its error is the largest over the forced
+    calls."""
+    forced = [r for r in synth if r["kernel"] == "big"]
+    at = next(r for r in synth if r.get("big_ms") is not None
+              and r["shape"] == [1, 14, 108] and r["dtype"] == "float64")
+    launches = sum(c["big"] for c in paths.values())
+    return dict(
+        name="block_thomas_big", route="cuda",
+        source="dlp_admm_torch/csrc/block_thomas_big.cu", replaces=REPLACES,
+        launches=launches,
+        launches_by_path={p: c["big"] for p, c in paths.items()},
+        path=None, shape=[1, 14, 108], dtype="float64",
+        max_abs_err=max(r["max_abs_err"] for r in forced),
+        max_rel_err=max(r["max_rel_err"] for r in forced),
+        worst_rel_err=max(r["max_rel_err"] for r in forced), tol=at["tol"],
+        ms=at["big_ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+        bound_us=at["bound_us"], bound_by=at["bound_by"],
+        library_ms=at["library_ms"],
+        us_per_pivot=1e3 * at["big_ms"] / (14 * 108))
 
 
 def polygon_gap(p, q):

@@ -19,7 +19,7 @@ float32 stage solve: ``d = 1/sqrt(max(rowmax|C_k|, 1e-30))``, eliminate
 ``(D C D) Y = D [U_k | g_k]``, one refinement pass on the scaled system,
 ``X = D Y``. It stays one kernel launch per solve.
 
-Three kernels, chosen by the block width (:func:`kernel_plan`):
+Four kernels, chosen by the block width (:func:`kernel_plan`):
 
 * ``warp`` (``csrc/block_thomas_warp.cu``, compiled once per element type),
   B <= 32: one warp per system, the augmented tile in registers, no block
@@ -28,10 +28,17 @@ Three kernels, chosen by the block width (:func:`kernel_plan`):
   32 < B <= 97 in float64 and <= 138 in float32 (equilibrated: <= 80 and
   <= 106): one thread block per system, the tile in registers (warp w owns
   rows, lane l columns l, l+32, ...), one block barrier a pivot step;
+* ``cluster`` (``csrc/block_thomas_cluster.cu``, compiled once per element
+  type), past the wide kernel's classes up to what a thread-block cluster
+  holds on chip (float64 B <= 384, float32 <= 528 on an H100): one cluster
+  of 2-16 CTAs per system, the tile split by 16-column blocks over their
+  shared memory, Gauss-Jordan by panels of 16 columns with one cluster
+  barrier a panel (each entry taking the plain elimination's operations in
+  their order), the stage products on the float64 tensor cores;
 * ``big`` (``csrc/block_thomas_big.cu``, compiled once per element type),
-  every width past the wide kernel's classes: one thread block per system,
-  the tile in shared memory where it fits (else in a device workspace),
-  two block barriers a pivot step.
+  every width past the cluster's reach: one thread block per system, the
+  tile in shared memory where it fits (else in a device workspace), two
+  block barriers a pivot step.
 
 :func:`block_thomas_solve` takes the plain version for tensors on the CPU and
 launches a kernel for tensors on a CUDA device; there is no fallback between
@@ -47,10 +54,11 @@ import torch
 from .. import cuda_build
 
 PIVOT_FLOOR = 1e-30
-KERNELS = ("warp", "wide", "big")
+KERNELS = ("warp", "wide", "cluster", "big")
 _WARP_SRC = (cuda_build.CSRC_DIR / "block_thomas_warp.cu",)
 _WIDE_SRC = (cuda_build.CSRC_DIR / "block_thomas_wide.cu",)
 _BIG_SRC = (cuda_build.CSRC_DIR / "block_thomas_big.cu",)
+_CLUSTER_SRC = (cuda_build.CSRC_DIR / "block_thomas_cluster.cu",)
 _F64 = ("-DBLOCK_THOMAS_REAL=double",)
 _F32 = ("-DBLOCK_THOMAS_REAL=float",)
 # library -> (sources, extra nvcc flags); one compiler each, side by side
@@ -61,6 +69,8 @@ LIBRARIES = {
     "block_thomas_wide_f32": (_WIDE_SRC, _F32),
     "block_thomas_big_f64": (_BIG_SRC, _F64),
     "block_thomas_big_f32": (_BIG_SRC, _F32),
+    "block_thomas_cluster_f64": (_CLUSTER_SRC, _F64),
+    "block_thomas_cluster_f32": (_CLUSTER_SRC, _F32),
 }
 WARP_MAX_B = 32
 WARP_WIDTHS = (20, 32)      # width bounds the warp kernel is compiled for
@@ -81,6 +91,11 @@ WIDE_CLASSES = {
 WIDE_PROFILE_BP = 80        # the class the profiling build is compiled for
 BIG_THREADS = 512           # threads a block of the big kernel
 BIG_MAX_WARPS = 16          # the big kernel's candidate slots (512 threads)
+CLUSTER_THREADS = 256       # threads a CTA of the cluster kernel
+CLUSTER_NB = 16             # its panel and column-block width
+CLUSTER_LDB = CLUSTER_NB + 1    # a block's row stride in shared memory
+CLUSTER_MAX = 16            # CTAs a cluster, at most (past 8: non-portable)
+CLUSTER_MAX_BLOCKS = 6      # column blocks a CTA holds, at most
 # an H100's per-block shared-memory limit and SM count: kernel_plan's
 # defaults when no device is asked (the CPU tests)
 H100_SMEM_LIMIT = 232448
@@ -234,6 +249,54 @@ def big_bytes(b: int, elem: int, tile_in_smem: bool) -> int:
             + -(-4 * b // 16) * 16)
 
 
+def cluster_blocks(b: int, r: int) -> tuple[int, int, int]:
+    """(Bp, C blocks, [U | g] blocks) of the cluster kernel: B padded to
+    16 columns, and the column blocks the CTA that holds the most of them
+    holds in a cluster of ``r`` (C block q and [U | g] block q on CTA
+    q mod r; g is [U | g] block Bp / 16)."""
+    bp = -(-b // CLUSTER_NB) * CLUSTER_NB
+    nq = bp // CLUSTER_NB
+    return bp, -(-nq // r), (nq + r) // r
+
+
+def cluster_bytes(b: int, elem: int, r: int, prefetch: bool) -> int:
+    """Shared-memory bytes of one CTA of the cluster kernel
+    (``cluster_bytes`` in ``csrc/block_thomas_cluster.cu``): one tile, or
+    two where the next stage is prefetched, of its blocks ``[Bp][17]``, a
+    panel's pivot-row values for each block ``[16][17]``, the row maxima
+    and scales ``[2, Bp]``, the multipliers of the rows a panel's swaps
+    touch ``[32][17]``, rounded up to 16 bytes; then every panel's pivot
+    rows ``int[Bp]`` rounded up to 16 bytes, the 4 factor warps' pivot
+    candidates (8-byte keys, 4-byte rows, ``[2, 4]``: 96 bytes), and a
+    panel's pivot rows, the rows its swaps touch, where each pivot row is
+    among them, and their count (``int[68]``: 272 bytes)."""
+    bp, mc, mr = cluster_blocks(b, r)
+    n = ((2 if prefetch else 1) * (mc + mr) * bp * CLUSTER_LDB
+         + (mc + mr) * CLUSTER_NB * CLUSTER_LDB + 2 * bp
+         + 2 * CLUSTER_NB * CLUSTER_LDB)
+    return -(-elem * n // 16) * 16 + -(-4 * bp // 16) * 16 + 96 + 272
+
+
+def cluster_size(b: int, elem: int,
+                 smem_limit: int = H100_SMEM_LIMIT) -> tuple | None:
+    """(CTAs a cluster, prefetch) for width ``b``, or None past the
+    cluster's reach: the smallest power of two that gives each CTA at most
+    two of the panels (and at least 2 CTAs), doubled while a CTA's blocks
+    do not fit the limit, up to 16; the next stage is prefetched where two
+    tiles fit."""
+    nq = -(-b // CLUSTER_NB)
+    r = 2
+    while r < min(-(-nq // 2), CLUSTER_MAX):
+        r *= 2
+    while r <= CLUSTER_MAX:
+        _, mc, mr = cluster_blocks(b, r)
+        if (mc + mr <= CLUSTER_MAX_BLOCKS
+                and cluster_bytes(b, elem, r, False) <= smem_limit):
+            return r, cluster_bytes(b, elem, r, True) <= smem_limit
+        r *= 2
+    return None
+
+
 def wide_classes(dtype: torch.dtype, equilibrate: bool) -> dict:
     """Bound -> (ncl, rpw, nt) of the wide kernel's classes built for
     ``dtype`` and the variant."""
@@ -250,13 +313,15 @@ def kernel_plan(s: int, t: int, b: int, dtype: torch.dtype,
     how it is launched.
 
     ``kernel`` is chosen by width unless given: ``"warp"`` for B <= 32,
-    ``"wide"`` up to its classes' widths, else ``"big"``. The warp kernel
+    ``"wide"`` up to its classes' widths, then ``"cluster"`` as far as a
+    cluster holds the tile on chip, else ``"big"``. The warp kernel
     spreads the systems over the SMs one warp each before it packs up to 4
     warps into a block, and keeps every stage's ``X_k | y_k`` in shared
-    memory where that fits the limit, else in global scratch. The big
-    kernel keeps its tile in shared memory where it fits the limit, else in
-    a device workspace. Raises ``ValueError`` for a width the named kernel
-    does not hold.
+    memory where that fits the limit, else in global scratch. The cluster
+    kernel launches ``S * cluster`` CTAs in clusters of ``cluster``
+    (:func:`cluster_size`). The big kernel keeps its tile in shared memory
+    where it fits the limit, else in a device workspace. Raises
+    ``ValueError`` for a width the named kernel does not hold.
     """
     elem = torch.finfo(dtype).bits // 8
     classes = wide_classes(dtype, equilibrate)
@@ -267,7 +332,19 @@ def kernel_plan(s: int, t: int, b: int, dtype: torch.dtype,
                                 *classes[bp]) <= smem_limit), None)
     if kernel is None:
         kernel = ("warp" if b <= WARP_MAX_B else
-                  "wide" if fit(b) is not None else "big")
+                  "wide" if fit(b) is not None else
+                  "cluster" if cluster_size(b, elem, smem_limit) else "big")
+    if kernel == "cluster":
+        size = cluster_size(b, elem, smem_limit)
+        if size is None:
+            raise ValueError(f"B={b} in {dtype} is past what a cluster of "
+                             f"{CLUSTER_MAX} CTAs holds in shared memory")
+        r, prefetch = size
+        bp, mc, mr = cluster_blocks(b, r)
+        return dict(kernel="cluster", cluster=r, prefetch=prefetch,
+                    threads=CLUSTER_THREADS, blocks=s * r, padded=bp,
+                    panels=bp // CLUSTER_NB, c_blocks=mc, rhs_blocks=mr,
+                    smem_bytes=cluster_bytes(b, elem, r, prefetch))
     if kernel == "big":
         tile_in_smem = big_bytes(b, elem, True) <= smem_limit
         need = big_bytes(b, elem, tile_in_smem)
@@ -319,7 +396,15 @@ def _lib(name: str):
     lib = cuda_build.load(name, *LIBRARIES[name])
     if not getattr(lib, "_typed", False):
         ptr, i32, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-        if name.startswith("block_thomas_big"):
+        if name.startswith("block_thomas_cluster"):
+            lib.block_thomas_cluster.argtypes = [ptr] * 9 + [i32] * 7 + [
+                sz, ptr]
+            lib.block_thomas_cluster.restype = i32
+            lib.block_thomas_cluster_max_active.argtypes = [i32] * 4 + [
+                ctypes.POINTER(ctypes.c_int)]
+            lib.block_thomas_cluster_max_active.restype = i32
+            elem_bytes = lib.block_thomas_cluster_elem_bytes
+        elif name.startswith("block_thomas_big"):
             lib.block_thomas_big.argtypes = [ptr] * 8 + [i32] * 7 + [sz, ptr]
             lib.block_thomas_big.restype = i32
             elem_bytes = lib.block_thomas_big_elem_bytes
@@ -370,6 +455,25 @@ def device_limits(device) -> tuple[int, int]:
     return lim
 
 
+def cluster_max_active(b: int, dtype: torch.dtype, equilibrate: bool,
+                       device="cuda") -> int:
+    """How many clusters of the cluster kernel's plan for width ``b`` the
+    device runs at once (``cudaOccupancyMaxActiveClusters``); a launch of
+    ``S`` systems runs in ``ceil(S / that)`` waves."""
+    smem_limit, sm_count = device_limits(device)
+    plan = kernel_plan(1, 1, b, dtype, equilibrate, "cluster", smem_limit,
+                       sm_count)
+    lib = _lib(library_name("cluster", dtype))
+    count = ctypes.c_int(0)
+    with torch.cuda.device(torch.device(device)):
+        rc = lib.block_thomas_cluster_max_active(
+            b, plan["cluster"], int(plan["prefetch"]), int(equilibrate),
+            ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: {rc}")
+    return count.value
+
+
 def _check(diag, upper, rhs):
     if rhs.dim() != 3:
         raise ValueError(f"rhs must be [S, T, B], got {tuple(rhs.shape)}")
@@ -398,12 +502,18 @@ def launch_kernel(diag: torch.Tensor, upper: torch.Tensor, rhs: torch.Tensor,
     its output; ``kernel`` overrides the choice by width, for measurements.
 
     ``profile=True`` (float64 unequilibrated or float32 equilibrated; the
-    warp kernel for B <= 20, the wide kernel for 32 < B <= 80) also returns
-    ``[S, 6]`` int64 clocks per system spent in (warp kernel: load,
-    equilibrate, elimination, refinement, storing ``X_k | y_k`` and the
-    product for the next stage, back substitution; wide kernel: load and
-    the product of the stage, equilibrate, elimination, refinement, storing
-    ``X_k | y_k``, back substitution).
+    warp kernel for B <= 20, the wide kernel for 32 < B <= 80, the cluster
+    kernel at any width it holds) also returns ``[S, 6]`` int64 clocks per
+    system spent in (warp kernel: load, equilibrate, elimination,
+    refinement, storing ``X_k | y_k`` and the product for the next stage,
+    back substitution; wide kernel: load and the product of the stage,
+    equilibrate, elimination, refinement, storing ``X_k | y_k``, back
+    substitution), and for the cluster kernel ``[S, cluster, 6]``, each
+    CTA's clocks in the panel factors, the cluster barriers (waits for the
+    CTA's own warps included), the panel updates (and the refinement's),
+    the stage product (and the equilibrated variant's scaling and
+    residual), the copies in and out, and the back substitution (the first
+    CTA).
     Under stream capture the launch is recorded into the graph and
     counted in :data:`captured`; :func:`replay` counts it when it runs.
     """
@@ -446,6 +556,29 @@ def launch_kernel(diag: torch.Tensor, upper: torch.Tensor, rhs: torch.Tensor,
                     *args, s, t, b, upper.shape[1], int(equilibrate),
                     plan["bp"], plan["warps"], int(plan["hist_in_smem"]),
                     plan["smem_bytes"], stream)
+        elif name == "cluster":
+            # scratch: every stage's X_k | y_k and, equilibrated, the scaled
+            # stage system A_s | M_s and the first solution Y (padded); the
+            # kernel writes each element before reading it
+            xs = torch.empty_like(diag)
+            ys = torch.empty_like(rhs)
+            bp, r = plan["padded"], plan["cluster"]
+            wr = bp + CLUSTER_NB
+            orig = torch.empty((s, bp, bp + wr), dtype=rhs.dtype,
+                               device=rhs.device) if equilibrate else None
+            ysc = torch.empty((s, bp, wr), dtype=rhs.dtype,
+                              device=rhs.device) if equilibrate else None
+            if profile:
+                prof = torch.zeros((s, r, 6), dtype=torch.int64,
+                                   device=rhs.device)
+            rc = lib.block_thomas_cluster(
+                diag.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
+                out.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+                None if orig is None else orig.data_ptr(),
+                None if ysc is None else ysc.data_ptr(),
+                None if prof is None else prof.data_ptr(), s, t, b,
+                upper.shape[1], int(equilibrate), r, int(plan["prefetch"]),
+                plan["smem_bytes"], stream)
         elif name == "big":
             # scratch: every stage's X_k | y_k, the tile where it does not
             # fit shared memory and, equilibrated, the scaled stage system

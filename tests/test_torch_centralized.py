@@ -186,12 +186,20 @@ def test_kernel_plan_at_the_centralized_widths():
     assert (plan["kernel"], plan["bp"], plan["smem_bytes"]) == (
         "wide", 80, 81856)
     # 4 vehicles are past the wide kernel's float64 range (97) and its
-    # float32 equilibrated range (106): the big kernel, its tile in shared
-    # memory (187 KB of the 227 KB a block may have in float64)
-    plan = thomas.kernel_plan(1, 14, 108, f64)
+    # float32 equilibrated range (106): the cluster kernel, 4 CTAs of 256
+    # threads, 7 panels, 2 C and 2 [U | g] blocks a CTA, the next stage
+    # prefetched; the big kernel, forced, keeps its tile in shared memory
+    # (187 KB of the 227 KB a block may have in float64)
+    for dtype, eq, smem in ((f64, False, 137520), (f32, True, 69168)):
+        plan = thomas.kernel_plan(1, 14, 108, dtype, equilibrate=eq)
+        assert plan == dict(kernel="cluster", cluster=4, prefetch=True,
+                            threads=256, blocks=4, padded=112, panels=7,
+                            c_blocks=2, rhs_blocks=2, smem_bytes=smem)
+    plan = thomas.kernel_plan(1, 14, 108, f64, kernel="big")
     assert plan == dict(kernel="big", threads=512, blocks=1,
                         tile_in_smem=True, smem_bytes=194176)
-    plan = thomas.kernel_plan(1, 14, 108, f32, equilibrate=True)
+    plan = thomas.kernel_plan(1, 14, 108, f32, equilibrate=True,
+                              kernel="big")
     assert plan == dict(kernel="big", threads=512, blocks=1,
                         tile_in_smem=True, smem_bytes=97408)
     # the wide kernel forced past its classes still refuses
@@ -232,11 +240,13 @@ def test_kernel_plan_at_fourteen_stages(b, dtype, eq, kernel, bp, smem):
     (264, torch.float64, False, False, 16048),
     (264, torch.float32, True, False, 8656)])
 def test_kernel_plan_past_the_wide_classes(b, dtype, eq, in_smem, smem):
-    """Every width past the wide kernel's classes goes to the big kernel:
-    its tile [B, 2B+1] in shared memory where it fits the 232,448 bytes a
-    block may have (float64 up to 118, float32 up to 168), else in a device
-    workspace; the 8-vehicle consensus edge (264) is such a width."""
-    plan = thomas.kernel_plan(7, 7, b, dtype, eq)
+    """Every width past the wide kernel's classes goes to the cluster
+    kernel (up to its reach); the big kernel, forced onto them (and the
+    plan past that reach), keeps its tile [B, 2B+1] in shared memory where
+    it fits the 232,448 bytes a block may have (float64 up to 118, float32
+    up to 168), else in a device workspace, as at the synthetic 264."""
+    assert thomas.kernel_plan(7, 7, b, dtype, eq)["kernel"] == "cluster"
+    plan = thomas.kernel_plan(7, 7, b, dtype, eq, kernel="big")
     assert (plan["kernel"], plan["blocks"], plan["tile_in_smem"]) == (
         "big", 7, in_smem)
     assert plan["smem_bytes"] == thomas.big_bytes(b, dtype.itemsize, in_smem)
@@ -248,10 +258,11 @@ def test_kernel_plan_past_the_wide_classes(b, dtype, eq, in_smem, smem):
 @pytest.mark.parametrize("shape", [(1, 14, 108), (1, 7, 264)],
                          ids=["s1-t14-b108", "s1-t7-b264"])
 def test_plain_version_solves_the_big_widths(shape):
-    """The kernels' plain version, which the big kernel is held to on the
-    card, against ``torch.linalg.solve`` on the assembled dense matrix of a
-    diagonally dominant system at the big kernel's widths (float64, 1e-12
-    relative: both are backward stable on a system conditioned near 1)."""
+    """The kernels' plain version, which the cluster and big kernels are
+    held to on the card, against ``torch.linalg.solve`` on the assembled
+    dense matrix of a diagonally dominant system at the 4-vehicle
+    centralized width and a synthetic 264 (float64, 1e-12 relative: both
+    are backward stable on a system conditioned near 1)."""
     rng = np.random.default_rng(3)
     s, t, b = shape
     diag = rng.normal(size=(s, t, b, b))

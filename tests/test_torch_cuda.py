@@ -1,8 +1,10 @@
 """The block-Thomas CUDA kernels against their plain PyTorch version, on a
 card: the warp kernel (B <= 32), the wide kernel (above, up to its width
-classes, and forced onto the narrow shapes) and the big kernel (past the
-wide classes: the 4-vehicle centralized width 108 and the 8-vehicle
-consensus edge width 264), plain and equilibrated, at 7 and at 14 stages;
+classes, and forced onto the narrow shapes), the cluster kernel (past the
+wide classes: the 4-vehicle centralized width 108, a synthetic 264, the
+8-vehicle consensus edge width 320 and the widths where its cluster and
+block counts change) and the big kernel (past the cluster's reach, and
+forced onto 108 and 264), plain and equilibrated, at 7 and at 14 stages;
 and the planners that run them, graphed on the card against the CPU, and a
 checkpointed run resumed on the card.
 
@@ -26,8 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BIG_SHAPES, SHAPES, T14_SHAPES, VARIANTS,
-                        WIDE_SHAPES, flagship_profile, make_system)
+from chip_smoke import (SHAPES, T14_SHAPES, VARIANTS, WIDE_SHAPES,
+                        backward_error, flagship_profile, make_system)
 from dlp_admm_torch.config import ObcaConfig, SolverConfig
 from dlp_admm_torch.models.obca import ConsensusObcaPlanner
 from dlp_admm_torch.solvers import ip_staged, thomas
@@ -61,10 +63,11 @@ def _shape_id(s):
                          ids=_shape_id)
 def test_kernel_matches_plain(cuda, shape, kind, equilibrate, dtype):
     d, u, r = _system(5, shape, kind, dtype, cuda)
-    # past the equilibrated variant's widths (float64 97) the big kernel
+    # past the equilibrated variant's widths (float64 80) the cluster kernel
     name = thomas.kernel_plan(*shape, dtype, equilibrate)["kernel"]
     assert name == ("warp" if shape[2] <= 32 else "wide" if not (
-        equilibrate and dtype == torch.float64 and shape[2] > 80) else "big")
+        equilibrate and dtype == torch.float64 and shape[2] > 80)
+        else "cluster")
     before = thomas.launches_by_kernel[name]
     total = thomas.launches
     got = thomas.block_thomas_solve(d, u, r, equilibrate)
@@ -107,13 +110,13 @@ def test_kernel_matches_plain_at_fourteen_stages(cuda, shape, kind,
 def test_centralized_four_vehicle_width_is_refused(cuda, dtype):
     """The 4-vehicle centralized KKT blocks (108 wide), past the wide
     kernel's range in the variant the staged solver asks for, are no longer
-    refused: the big kernel solves them (one launch, equal to the plain
+    refused: the cluster kernel solves them (one launch, equal to the plain
     version)."""
     d, u, r = _system(9, (1, 14, 108), "kkt_saddle", dtype, cuda)
     eq = dtype != torch.float64
-    before = thomas.launches_by_kernel["big"]
+    before = thomas.launches_by_kernel["cluster"]
     got = thomas.block_thomas_solve(d, u, r, eq)
-    assert thomas.launches_by_kernel["big"] == before + 1
+    assert thomas.launches_by_kernel["cluster"] == before + 1
     want = thomas.block_thomas_plain(d, u, r, eq)
     torch.cuda.synchronize()
     rel = float((got - want).abs().max() / want.abs().max())
@@ -125,15 +128,16 @@ def test_centralized_four_vehicle_width_is_refused(cuda, dtype):
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("kind,equilibrate", VARIANTS,
                          ids=[f"{k}{'-eq' if e else ''}" for k, e in VARIANTS])
-@pytest.mark.parametrize("shape", BIG_SHAPES, ids=_shape_id)
+@pytest.mark.parametrize("shape", ((1, 14, 108), (2, 7, 264)),
+                         ids=_shape_id)
 def test_big_kernel_matches_plain(cuda, shape, kind, equilibrate, dtype):
-    """Past the wide kernel's classes: the tile in shared memory (108) and
-    in the device workspace (264); float32 unequilibrated at 108, which the
-    wide kernel holds, forced onto the big kernel."""
+    """The big kernel forced onto the shapes the cluster kernel now solves:
+    the tile in shared memory (108) and in the device workspace (264);
+    float32 unequilibrated at 108, which the wide kernel holds."""
     d, u, r = _system(11, shape, kind, dtype, cuda)
     plan = thomas.kernel_plan(*shape, dtype, equilibrate)["kernel"]
     assert plan == ("wide" if dtype == torch.float32 and not equilibrate
-                    and shape[2] <= 138 else "big")
+                    and shape[2] <= 138 else "cluster")
     before = thomas.launches_by_kernel["big"]
     got = thomas.launch_kernel(d, u, r, equilibrate, kernel="big")
     assert thomas.launches_by_kernel["big"] == before + 1
@@ -142,6 +146,115 @@ def test_big_kernel_matches_plain(cuda, shape, kind, equilibrate, dtype):
     assert bool(torch.isfinite(got).all())
     rel = float((got - want).abs().max() / want.abs().max())
     assert rel < TOL[dtype], rel
+
+
+# the cluster kernel's widths where its cluster size, its blocks a CTA or
+# its prefetch change: 98-119 (4 CTAs, prefetched), 169 (8, prefetched),
+# 200 (8, one tile), 264 and 320 (16, one tile; float32 prefetched)
+CLUSTER_WIDTHS = (98, 108, 119, 169, 200, 264, 320)
+# per variant: the path's kinds, exact ties of small integers and a NaN
+CLUSTER_FAMILIES = {False: ("kkt_saddle", "zero_lead", "ties", "nan"),
+                    True: ("kkt_saddle", "badly_scaled", "ties", "nan")}
+
+
+def _family(seed, shape, kind, dtype, dev):
+    """``make_system``'s kinds, or ``ties``: blocks of small integers whose
+    first column is all ones and whose second has a tie below the top, as
+    ``tests/test_torch_thomas.py``'s pivot-order test, coupled by 0.1 times
+    small integers; ``nan``: the same with one NaN in the first system's
+    first stage, the first pivot column of the second system."""
+    if kind not in ("ties", "nan"):
+        return _system(seed, shape, kind, dtype, dev)
+    s, t, b = shape
+    rng = np.random.default_rng(seed)
+    diag = rng.integers(-2, 3, size=(s, t, b, b)).astype(np.float64)
+    diag[..., :, 0] = 1.0
+    diag[..., 5:9, 1] = 7.0
+    upper = 0.1 * rng.integers(-2, 3, size=(s, t, b, b))
+    if kind == "nan":
+        diag[s - 1, 0, 6, 0] = np.nan
+    return tuple(torch.as_tensor(a, dtype=dtype, device=dev)
+                 for a in (diag, upper, rng.normal(size=(s, t, b))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("equilibrate", [False, True], ids=["plain", "eq"])
+@pytest.mark.parametrize("family", range(4))
+@pytest.mark.parametrize("b", CLUSTER_WIDTHS)
+def test_cluster_kernel_matches_plain(cuda, b, family, equilibrate, dtype):
+    """The cluster kernel forced at every width where its layout changes,
+    two systems of 3 stages: the same numbers as the plain version (TOL).
+    In the NaN family the second system's first pivot is the NaN, which
+    both floor to -1e-30, so every later step of that system rounds values
+    scaled by 1e30: there the two are held to the same pattern of finite
+    entries (none equilibrated, where the NaN spreads through its row
+    scale; all of them unequilibrated), and the first system, launched
+    beside it, to the same numbers. The ties and NaN families' integer
+    blocks are conditioned so that float32 rounding of the stage products
+    (summed in another order than the plain version's matmul) moves their
+    solutions by up to 3.7e-4 of their scale at 200-320 wide (an H100,
+    one earlier build of this kernel): in float32 they are held to the
+    plain version's row-wise backward error instead (no more than 4 times
+    it, or 10 units of rounding), the measure phase 7 of chip_smoke.py
+    holds the planner's ill-conditioned blocks to."""
+    kind = CLUSTER_FAMILIES[equilibrate][family]
+    shape = (2, 3, b)
+    d, u, r = _family(13 + b, shape, kind, dtype, cuda)
+    before = dict(thomas.launches_by_kernel)
+    got = thomas.launch_kernel(d, u, r, equilibrate, kernel="cluster")
+    assert thomas.launches_by_kernel == dict(
+        before, cluster=before["cluster"] + 1)
+    want = thomas.block_thomas_plain(d, u, r, equilibrate)
+    torch.cuda.synchronize()
+    if kind == "nan":
+        finite = torch.isfinite(want[1])
+        assert bool(finite.all()) != equilibrate
+        assert torch.equal(torch.isfinite(got[1]), finite)
+        got, want, d, u, r = (x[:1] for x in (got, want, d, u, r))
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32 and kind in ("ties", "nan"):
+        got_be = backward_error(d, u, r, got)[1]
+        want_be = backward_error(d, u, r, want)[1]
+        assert got_be <= max(4 * want_be,
+                             10 * torch.finfo(dtype).eps), (got_be, want_be)
+        return
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < TOL[dtype], rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_cluster_profiling_build_and_graph_replay(cuda, dtype):
+    """The profiling build gives the same bits and [S, R, 6] clocks; a
+    launch captured in a CUDA graph counts as captured, runs when
+    replayed and gives the eager launch's bits."""
+    eq = dtype == torch.float32
+    d, u, r = _system(9, (2, 14, 108), "kkt_saddle", dtype, cuda)
+    want = thomas.launch_kernel(d, u, r, eq)
+    got, clocks = thomas.launch_kernel(d, u, r, eq, profile=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    r_ = thomas.kernel_plan(2, 14, 108, dtype, eq)["cluster"]
+    assert clocks.shape == (2, r_, 6) and bool((clocks[:, 0, 0] > 0).all())
+    assert bool((clocks[:, 0, 5] > 0).all())       # back substitution
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    captured = thomas.captured["cluster"]
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        out = thomas.launch_kernel(d, u, r, eq)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    assert thomas.captured["cluster"] == captured + 1
+    before = thomas.launches_by_kernel["cluster"]
+    thomas.replay(graph, {"cluster": 1})
+    torch.cuda.synchronize()
+    assert thomas.launches_by_kernel["cluster"] == before + 1
+    assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
@@ -372,13 +485,14 @@ def test_wrapper_checks_on_cuda(cuda):
         thomas.block_thomas_solve(d.transpose(-1, -2), u, r)
     with pytest.raises(ValueError, match="one device"):
         thomas.block_thomas_solve(d, u, r.cpu())
-    # 200 wide, past the wide kernel's shared memory, is the big kernel's
-    # (its tile in the device workspace); 4000 wide, whose pivot rows alone
-    # pass the shared-memory limit, is refused before anything launches
+    # 200 wide, past the wide kernel's shared memory, is the cluster
+    # kernel's (8 CTAs); 4000 wide, whose pivot rows alone pass the big
+    # kernel's shared-memory limit, is refused before anything launches
     d, u, r = _system(7, (1, 2, 200), "diag_dominant", torch.float64, cuda)
-    before = thomas.launches_by_kernel["big"]
+    before = dict(thomas.launches_by_kernel)
     assert bool(torch.isfinite(thomas.block_thomas_solve(d, u, r)).all())
-    assert thomas.launches_by_kernel["big"] == before + 1
+    assert thomas.launches_by_kernel == dict(
+        before, cluster=before["cluster"] + 1)
     huge = 4000
     total = thomas.launches
     with pytest.raises(ValueError, match="shared memory"):

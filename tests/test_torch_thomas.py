@@ -22,10 +22,12 @@ References:
   scaled residual ``|Ax - r| / (|A||x| + |r|)``, below 2e-6 and no more
   than 4 times the JAX solve's.
 
-The launch layouts of the three kernels (:func:`thomas.kernel_plan`) are plain
-Python and are checked here. The CUDA kernels themselves are held against
-the plain version in ``tests/test_torch_cuda.py``, which imports no JAX so
-it runs on the card.
+The launch layouts of the four kernels (:func:`thomas.kernel_plan`) are plain
+Python and are checked here, and so is the cluster kernel's order of work
+(Gauss-Jordan by panels of 16 columns, emulated in numpy) against the plain
+elimination. The CUDA kernels themselves are held against the plain version
+in ``tests/test_torch_cuda.py``, which imports no JAX so it runs on the
+card.
 """
 import jax
 import jax.numpy as jnp
@@ -263,12 +265,12 @@ def test_kernel_plan_shared_memory_layout():
     (torch.float64, False, 97), (torch.float64, True, 80),
     (torch.float32, False, 138), (torch.float32, True, 106)])
 def test_kernel_plan_raises_past_shared_memory(dtype, equilibrate, b_max):
-    """Past the wide kernel's widest class the big kernel takes over; the
-    wide kernel, asked for by name, still raises there."""
+    """Past the wide kernel's widest class the cluster kernel takes over;
+    the wide kernel, asked for by name, still raises there."""
     assert thomas.kernel_plan(1, 7, b_max, dtype, equilibrate)[
         "kernel"] == "wide"
     assert thomas.kernel_plan(1, 7, b_max + 1, dtype, equilibrate)[
-        "kernel"] == "big"
+        "kernel"] == "cluster"
     with pytest.raises(ValueError, match=f"B <= {b_max}"):
         thomas.kernel_plan(1, 7, b_max + 1, dtype, equilibrate,
                            kernel="wide")
@@ -284,11 +286,12 @@ def test_kernel_plan_override_and_its_checks():
 
 
 def test_launch_counts_reset():
-    thomas._count({"warp": 2, "wide": 1, "big": 1})
-    assert thomas.launches >= 4
+    thomas._count({"warp": 2, "wide": 1, "cluster": 1, "big": 1})
+    assert thomas.launches >= 5
     thomas.reset_counts()
     assert thomas.launches == 0
-    assert thomas.launches_by_kernel == {"warp": 0, "wide": 0, "big": 0}
+    assert thomas.launches_by_kernel == {"warp": 0, "wide": 0, "cluster": 0,
+                                         "big": 0}
 
 
 # the wide kernel's layout over its whole range: widths 33-97 (float64) and
@@ -328,8 +331,8 @@ def test_wide_plan_over_its_range(dtype, equilibrate):
 def test_wide_plan_raises_with_the_largest_width_that_fits():
     """On a device with less shared memory the wide kernel's error names
     the largest width any class still holds there, and that width is
-    planned; every width past it goes to the big kernel, its tile in the
-    device workspace."""
+    planned; every width past it goes to the cluster kernel, which spreads
+    its tile over more CTAs than on an H100."""
     limit = 64 * 1024
     with pytest.raises(ValueError, match=r"B <= (\d+)") as err:
         thomas.kernel_plan(1, 7, 97, torch.float64, kernel="wide",
@@ -342,7 +345,7 @@ def test_wide_plan_raises_with_the_largest_width_that_fits():
             thomas.kernel_plan(1, 7, b, torch.float64, kernel="wide",
                                smem_limit=limit)
         plan = thomas.kernel_plan(1, 7, b, torch.float64, smem_limit=limit)
-        assert plan["kernel"] == "big" and plan["smem_bytes"] <= limit
+        assert plan["kernel"] == "cluster" and plan["smem_bytes"] <= limit
 
 
 def _first_largest_rule(c):
@@ -393,3 +396,186 @@ def test_plain_pivot_order_follows_the_kernels_rule(case):
         else:
             assert want[0] == 0              # the first of the tie
             np.testing.assert_array_equal(got[s], want)
+
+
+# -- the cluster kernel (widths past the wide classes) ------------------------
+
+# the widest B a cluster of 16 CTAs holds on an H100: the CTA with the most
+# column blocks holds 2 C and 2 [U | g] blocks of [Bp][17] (f64, Bp <= 384),
+# or 3 and 3 (f32, Bp <= 528)
+CLUSTER_REACH = {torch.float64: 384, torch.float32: 528}
+# the widths the plan is checked over, and past them, where the big kernel
+# takes over (the issue's bounds of the cluster's reach, about 440 / 630)
+CLUSTER_RANGE = {torch.float64: (81, 440), torch.float32: (98, 630)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("equilibrate", [False, True], ids=["plain", "eq"])
+def test_cluster_plan_over_its_range(dtype, equilibrate):
+    """Every width past the wide classes up to the cluster's reach is the
+    cluster kernel's: a power of two of CTAs (2-16), at most two panels
+    a CTA where 16 CTAs allow it, at most 6 column blocks a CTA, the
+    shared memory its layout needs within the limit (with the next stage
+    prefetched where two tiles fit); past the reach, the big kernel's."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    lo, hi = CLUSTER_RANGE[dtype]
+    reach = CLUSTER_REACH[dtype]
+    for b in range(lo, hi + 1):
+        plan = thomas.kernel_plan(3, 7, b, dtype, equilibrate)
+        if plan["kernel"] == "wide":
+            continue
+        if b > reach:
+            assert plan["kernel"] == "big", b
+            with pytest.raises(ValueError, match="past what a cluster"):
+                thomas.kernel_plan(3, 7, b, dtype, equilibrate,
+                                   kernel="cluster")
+            continue
+        r = plan["cluster"]
+        bp, mc, mr = thomas.cluster_blocks(b, r)
+        assert plan["kernel"] == "cluster", b
+        assert r in (2, 4, 8, 16) and plan["blocks"] == 3 * r
+        assert plan["threads"] == thomas.CLUSTER_THREADS
+        assert (plan["padded"], plan["c_blocks"], plan["rhs_blocks"]) == (
+            bp, mc, mr)
+        assert bp % 16 == 0 and b <= bp < b + 16
+        assert plan["panels"] == bp // 16 and mc + mr <= 6
+        assert mc <= 2 or r == 16
+        assert plan["smem_bytes"] == thomas.cluster_bytes(
+            b, elem, r, plan["prefetch"]) <= thomas.H100_SMEM_LIMIT
+        assert plan["prefetch"] == (thomas.cluster_bytes(b, elem, r, True)
+                                    <= thomas.H100_SMEM_LIMIT)
+    assert thomas.kernel_plan(1, 7, reach, dtype, equilibrate)[
+        "kernel"] == "cluster"
+
+
+def test_cluster_plan_at_the_path_widths():
+    """The 4-vehicle centralized width 108 (4 CTAs, the next stage
+    prefetched), the synthetic 264 and the 8-vehicle edge 320 (16 CTAs, one
+    tile); the layout's bytes by hand: [1 or 2 tiles][4 blocks][Bp][17],
+    the pivot-row values [4][16][17], [2][Bp], the multipliers [32][17],
+    then int[Bp], the factor warps' candidates (96 bytes) and a panel's
+    rows (272 bytes)."""
+    p108 = thomas.kernel_plan(1, 14, 108, torch.float64)
+    assert (p108["kernel"], p108["cluster"], p108["prefetch"]) == (
+        "cluster", 4, True)
+    assert p108["smem_bytes"] == 8 * (2 * 4 * 112 * 17 + 4 * 16 * 17
+                                      + 2 * 112 + 32 * 17) + 4 * 112 + 368
+    p320 = thomas.kernel_plan(1, 7, 320, torch.float64)
+    assert (p320["cluster"], p320["prefetch"], p320["blocks"]) == (
+        16, False, 16)
+    assert p320["smem_bytes"] == 8 * (4 * 320 * 17 + 4 * 16 * 17
+                                      + 2 * 320 + 32 * 17) + 4 * 320 + 368
+    assert thomas.kernel_plan(2, 7, 264, torch.float32, True)[
+        "cluster"] == 16
+    # forced onto the wide kernel's path widths, for comparison
+    assert thomas.kernel_plan(1, 14, 66, torch.float64, kernel="cluster")[
+        "cluster"] == 4
+    assert thomas.kernel_plan(1, 7, 80, torch.float64, kernel="cluster")[
+        "cluster"] == 4
+
+
+def test_past_the_cluster_the_big_kernel_and_then_refusal():
+    """One past the cluster's reach the big kernel takes the width (its
+    tile in the device workspace); at 4000 its own rows pass the shared
+    memory and the plan refuses."""
+    plan = thomas.kernel_plan(1, 7, CLUSTER_REACH[torch.float64] + 1,
+                              torch.float64)
+    assert plan["kernel"] == "big" and not plan["tile_in_smem"]
+    with pytest.raises(ValueError, match="shared memory"):
+        thomas.kernel_plan(1, 1, 4000, torch.float64)
+
+
+def _panel_gauss_jordan(c, m, nb=16):
+    """``C^-1 M`` the way the cluster kernel orders the work (numpy): the
+    tile padded to a multiple of ``nb`` (identity in C, zeros in M); per
+    panel of ``nb`` columns, the panel factored in place (pivot: the first
+    largest |entry| in rows i >= j of the column as updated so far, a NaN
+    above all; floored at +-1e-30; only the panel's live columns swapped
+    and updated, so column t keeps step t's multipliers, and 1 / pivot at
+    the pivot row); then the columns right of the panel late: the rows the
+    swaps touch (J and the pivot rows below it) step by step, swaps
+    included, keeping each step's pivot-row values, and every other row by
+    its 16 multiply-subtracts in order. Returns the solution and the pivot
+    rows."""
+    b = c.shape[0]
+    bp = -(-b // nb) * nb
+    tile = np.zeros((bp, bp + m.shape[1]))
+    tile[:, :bp] = np.eye(bp)
+    tile[:b, :b] = c
+    tile[:b, bp:] = m
+    pivots = []
+    for j0 in range(0, bp, nb):
+        pan = tile[:, j0:j0 + nb]           # a view: factored in place
+        pv = []
+        for t in range(nb):
+            j = j0 + t
+            col = pan[j:, t]
+            nan = np.flatnonzero(np.isnan(col))
+            p = j + (nan[0] if len(nan) else int(np.argmax(np.abs(col))))
+            pv.append(p)
+            pan[[j, p], t:] = pan[[p, j], t:]
+            prow = pan[j, t:].copy()
+            piv = prow[0]
+            if not abs(piv) > thomas.PIVOT_FLOOR:
+                piv = thomas.PIVOT_FLOOR if piv >= 0 else -thomas.PIVOT_FLOOR
+            inv = 1.0 / piv
+            mult = pan[:, t] * inv
+            pan[:, t + 1:] = pan[:, t + 1:] - mult[:, None] * prow[None, 1:]
+            pan[:, t] = mult
+            pan[j, t + 1:] = prow[1:] * inv
+            pan[j, t] = inv
+        pivots += pv
+        trail = tile[:, j0 + nb:]
+        touched = list(range(j0, j0 + nb)) + sorted(
+            {p for p in pv if p >= j0 + nb})
+        prows = np.zeros((nb, trail.shape[1]))
+        for t in range(nb):
+            j, p = j0 + t, pv[t]
+            trail[[j, p]] = trail[[p, j]]
+            prows[t] = trail[j]
+            for r in touched:
+                if r != j:
+                    trail[r] = trail[r] - pan[r, t] * prows[t]
+            trail[j] = prows[t] * pan[j, t]
+        for r in range(bp):
+            if r not in touched:
+                a = trail[r].copy()
+                for t in range(nb):
+                    a = a - pan[r, t] * prows[t]
+                trail[r] = a
+    return tile[:b, bp:], pivots[:b]
+
+
+@pytest.mark.parametrize("case", ["random-5", "random-40", "random-50",
+                                  "ties", "nan"])
+def test_panel_order_matches_gauss_jordan(case):
+    """The cluster kernel's order of work gives the plain elimination's
+    pivot rows and its numbers, bit for bit (each entry takes the same
+    multiplies and subtracts in the same order, only late): on random
+    systems (one panel, a ragged second panel, four panels), and on the
+    exact ties and the NaN of
+    ``test_plain_pivot_order_follows_the_kernels_rule``, whose NaN row is
+    the first pivot, floored to -1e-30, so that every later step rounds
+    multipliers near 1e30: an order of summation of its own would part
+    from the plain version's pivots there."""
+    rng = np.random.default_rng(12)
+    if case.startswith("random"):
+        b = int(case.split("-")[1])
+        c = rng.normal(size=(b, b))
+    else:
+        b = 40
+        cs = rng.integers(-2, 3, size=(2, b, b)).astype(np.float64)
+        cs[:, :, 0] = 1.0
+        cs[:, 5:9, 1] = 7.0
+        cs[1, 6, 0] = np.nan
+        c = cs[1] if case == "nan" else cs[0]
+    m = np.random.default_rng(3).normal(size=(b, b + 1))
+    pivots = []
+    want = thomas._gauss_jordan(torch.as_tensor(c)[None],
+                                torch.as_tensor(m)[None], pivots)[0].numpy()
+    got, got_piv = _panel_gauss_jordan(c, m)
+    assert got_piv == [int(p[0]) for p in pivots]
+    if case in ("ties", "nan"):
+        assert got_piv[0] == (6 if case == "nan" else 0)
+    np.testing.assert_array_equal(got, want)

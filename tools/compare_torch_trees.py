@@ -15,20 +15,28 @@ checkout, lets it build its kernels, and
   with the float64 profile and keeps every step's wall time (the first step
   carries the set-up) and ADMM iteration count;
 * runs the 4-vehicle run of ``tests/test_multivehicle.py`` (4 steps, ADMM
-  cap 5, float64; KKT widths 33 and 80, the wide kernel's) the same way.
+  cap 5, float64; KKT widths 33 and 80, the wide kernel's) the same way;
+* with ``--centralized``: times K1 at the centralized planner's 4-vehicle
+  shape (1, 14, 108), float64 and float32 equilibrated, and one 4-vehicle
+  ``CentralizedObcaPlanner.solve_at`` (300 IP trips at most, as
+  ``chip_smoke.py`` phase 11 gives it; each trip a replayed CUDA graph
+  with two K1 launches) after a warm-up call: its wall, trips and wall per
+  trip, and K1's share of a trip (two launches at the timed K1 time).
 
 Only entry points that every checkout of the port has are used, so the
-parent may be any earlier commit, unpacked with ``git archive`` into a
-directory of its own.
+parent may be any earlier commit (with ``--centralized``, one from the
+commit that first solved B = 108 on the card on), unpacked with
+``git archive`` into a directory of its own.
 
 Usage: python3 tools/compare_torch_trees.py --parent DIR [--change DIR]
-           [--out PATH.json]
+           [--centralized] [--out PATH.json]
 """
 import argparse
 import json
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (shape, dtype name, equilibrate)
@@ -38,9 +46,12 @@ CASES = tuple((sh, dt, False) for dt in ("float64", "float32")
     ((1, 7, 80), "float64", False), ((1, 7, 45), "float32", True),
     ((2, 7, 61), "float32", True))
 SLICE_STEPS = 6
+CENTRALIZED_CASES = (((1, 14, 108), "float64", False),
+                     ((1, 14, 108), "float32", True))
+CEN_V4_IP_ITERS = 300
 
 
-def worker(tree):
+def worker(tree, centralized=False):
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -76,7 +87,8 @@ def worker(tree):
 
     rng = np.random.default_rng(0)
     k1 = {}
-    for (s, t, b), dt, eq in CASES:
+    for (s, t, b), dt, eq in CASES + (CENTRALIZED_CASES if centralized
+                                      else ()):
         dtype = getattr(torch, dt)
         diag = rng.normal(size=(s, t, b, b))
         diag = 0.5 * (diag + np.swapaxes(diag, -1, -2)) \
@@ -98,24 +110,53 @@ def worker(tree):
                         rho=100.0),
         scfg=SolverConfig(ip_iters=40, ip_tol=1e-6), n_steps=4,
         device="cuda", dtype=torch.float64, gate_pairs=True, gate_thres=12.0)
-    print(json.dumps(dict(
+    rec = dict(
         tree=tree, k1_ms=k1, step_wall_s=list(res.metrics.step_times),
         iterations=list(res.metrics.iter_history),
         final_state=res.states[-1].tolist(),
         v4_step_wall_s=list(v4.metrics.step_times),
         v4_iterations=list(v4.metrics.iter_history),
-        v4_final_state=v4.states[-1].tolist())), flush=True)
+        v4_final_state=v4.states[-1].tolist())
+    if centralized:
+        from dlp_admm_torch.config import VehicleConfig
+        from dlp_admm_torch.models.obca import CentralizedObcaPlanner
+        ref = np.load(os.path.join(tree, "tests", "data",
+                                   "obca_centralized_v4_ref.npz"))
+        prof = json.loads(str(ref["profile"]))
+
+        def solve():
+            pl = CentralizedObcaPlanner(
+                ObcaConfig(**prof["ocfg"], num_veh=4), VehicleConfig(),
+                SolverConfig(ip_iters=CEN_V4_IP_ITERS), device="cuda")
+            return pl, pl.solve_at(pl.refs[:, 0, :], 0)
+        solve()                 # builds, captures, warms the allocator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pl, (_, _, _, sol) = solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trips = int(sol.iterations)
+        rec.update(cen_v4_wall_s=wall, cen_v4_trips=trips,
+                   cen_v4_converged=bool(sol.converged),
+                   cen_v4_block_solves=pl.block_solves,
+                   cen_v4_ms_per_trip=1e3 * wall / trips,
+                   cen_v4_k1_share=(pl.block_solves / trips)
+                   * k1["1x14x108 float64"] / (1e3 * wall / trips))
+    print(json.dumps(rec), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="checkout of the commit to compare with")
     ap.add_argument("--change", default=ROOT)
+    ap.add_argument("--centralized", action="store_true",
+                    help="also time K1 at (1, 14, 108) and the 4-vehicle "
+                         "centralized solve_at")
     ap.add_argument("--out", default=None)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(os.path.abspath(args.worker))
+        return worker(os.path.abspath(args.worker), args.centralized)
     if not args.parent:
         ap.error("--parent is required")
     smi = subprocess.run(
@@ -125,7 +166,8 @@ def main():
     for name in ("parent", "change", "change", "parent"):
         tree = os.path.abspath(getattr(args, name))
         out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker", tree],
+            [sys.executable, os.path.abspath(__file__), "--worker", tree]
+            + (["--centralized"] if args.centralized else []),
             capture_output=True, text=True, cwd=tree)
         if out.returncode != 0:
             raise RuntimeError(f"{name} ({tree}) failed:\n{out.stderr[-4000:]}")
@@ -152,6 +194,11 @@ def main():
             v4_first_step_wall_s=mean([t["v4_step_wall_s"][0]
                                        for t in mine]),
             v4_iterations=mine[0]["v4_iterations"])
+        if args.centralized:
+            summary[name].update({k: mean([t[k] for t in mine]) for k in (
+                "cen_v4_wall_s", "cen_v4_ms_per_trip", "cen_v4_k1_share")},
+                cen_v4_trips=[t["cen_v4_trips"] for t in mine],
+                cen_v4_converged=[t["cen_v4_converged"] for t in mine])
     print(json.dumps(summary), flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -24,14 +24,15 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    (1, 14, 76), and (1, 14, 108) (the 4-vehicle centralized width),
    (2, 7, 264) (synthetic) and (1, 7, 320) (the 8-vehicle consensus edge
    width), which the cluster kernel solves, with the big kernel forced
-   onto the same calls beside it, on diagonally dominant, KKT-style saddle, zero-leading-block saddle and
+   onto the same calls beside it (timed beside it at 108 only), on
+   diagonally dominant, KKT-style saddle, zero-leading-block saddle and
    (equilibrated only) badly scaled systems made with numpy from a fixed
    seed (tolerances below);
-   per shape the device time of both kernels in turns, of the plain version
-   and of one ``torch.linalg.solve`` on the assembled dense matrix (a
-   yardstick the port never calls), beside the roofline bound; the cluster
-   kernel also forced at (1, 14, 66) and (1, 7, 80) beside the wide kernel
-   (printed, for comparison), and its clock64() split at (1, 14, 108) and
+   at each shape a path gives K1 (``PATH_SHAPES``), the device time of both
+   kernels in turns, of the plain version and of one ``torch.linalg.solve``
+   on the assembled dense matrix (a yardstick the port never calls),
+   beside the roofline bound; the cluster kernel also forced at
+   (1, 14, 66) and (1, 7, 80), and its clock64() split at (1, 14, 108) and
    (2, 7, 264);
 4. the float64 slice: ``dlp_admm_torch.mpc.run_obca(Formulation.CONSENSUS)``
    on the card with the flagship's float64 profile, first 6 MPC steps, held
@@ -50,8 +51,9 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    ``tests/test_multivehicle.py`` (ADMM cap 5) through ``run_obca``, held
    against it (states within 1e-6, equal ADMM iteration counts);
 7. the kernels against their plain version on the KKT blocks those runs
-   gave them (by solution and by backward error), timed as in 3, and the
-   clock64() split of both kernels' profiling builds on them;
+   gave them (by solution and by backward error), the kernels line's
+   blocks and the float64 batch's timed as in 3, and the clock64() split
+   of both kernels' profiling builds on them;
 8. ``--full``: all 42 steps of both profiles (and the whole runs of
    phases 13 and 14). The run fails on the gates
    that hold whichever branch the chaotic conflict window takes (42 steps,
@@ -74,8 +76,8 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
 10. the scenario-batched driver of ``bench.py``'s third metric,
    ``dlp_admm_torch.parallel.consensus_spmd.run_scenario_batch`` at its
    full width (16 perturbed overtaking scenarios x 2 vehicles, the
-   flagship's float64 profile): over the committed JAX run's steps
-   (``tests/data/consensus_obca_batch_f64_ref.npz``, 6 of the bench's 20)
+   flagship's float64 profile): over the first 2 of the committed JAX
+   run's 6 steps (``tests/data/consensus_obca_batch_f64_ref.npz``)
    equal ADMM iterations per lane and states within 1e-6 up to the
    (lane, step) where JAX itself, its starts moved by 1e-12, leaves itself
    (the rest printed); lane 0 also against the single-scenario fixture;
@@ -96,7 +98,8 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
 
 11. the centralized joint planner, ``run_obca(Formulation.CENTRALIZED)``
    with its defaults (2 vehicles overtaking, horizon 15, ``min_dis`` 1.0,
-   35 MPC steps, float64): its staged solve is one lane of 14 stages, so
+   float64) over its first 8 of 35 MPC steps (``CEN_SMOKE_STEPS``): its
+   staged solve is one lane of 14 stages, so
    K1 runs at (1, 14, 34); held against the committed JAX run
    ``tests/data/obca_centralized_ref.npz`` (equal IP iterations and states
    within 1e-6 up to the step where the JAX run, its references moved by
@@ -122,8 +125,8 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    on the kernels and on their plain version: states within 1e-9, equal
    ADMM iterations and IP trips, launches equal to block solves;
 12. the classic PI-ADMM layout, ``run_pi_admm()`` with its defaults (2
-   vehicles crossing, horizon 5, float64), its first 23 steps (through
-   JAX's own chaotic step, 22; ``--full`` all 45) held against
+   vehicles crossing, horizon 5, float64), its first 12 steps (JAX's own
+   chaotic step is 22; ``--full`` all 45) held against
    ``tests/data/pi_admm_classic_ref.npz`` (equal iterations and states
    within 1e-6 up to that step); the paper's A/B of
    ``tests/test_pi_vs_plain.py:43-52`` on the card (PI-reciprocal's
@@ -133,7 +136,7 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    safety A/B (``test_pi_vs_plain.py:54``);
 13. the fixed-dual family, ``run_obca(Formulation.BILEVEL |
    TIGHTENING | TIGHTENING_SLACK)`` with the driver's defaults (2 vehicles,
-   horizon 8, ``min_dis`` 1.0, float64), the first 6 MPC steps of each
+   horizon 8, ``min_dis`` 1.0, float64), the first 3 MPC steps of each
    (``--full``: all 42 / 62 / 62), each held
    against its committed JAX run ``tests/data/bilevel_ref.npz`` (states
    within 1e-6, per step ``elastic`` within 1e-12 plus 1e-6 and
@@ -150,8 +153,8 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
 14. ALADIN, ``run_pi_admm(layout="aladin")`` on the crossing of
    ``tests/test_aladin.py::test_crossing_scenario_collision_free``
    (``PiAdmmConfig()``, 2 vehicles, horizon 5, ``ip_iters`` 25,
-   ``ip_tol`` 1e-7, float64), its first 22 steps through the conflict
-   onset (``--full``: all 45), against ``tests/data/aladin_ref.npz``
+   ``ip_tol`` 1e-7, float64), its first 8 steps (``--full``: all 45;
+   JAX's own chaotic step is 22), against ``tests/data/aladin_ref.npz``
    (equal ALADIN iterations per step and states within 1e-6 up to JAX's
    own chaotic step, 22) and on that test's gates (finite, clearance
    > 1.5 m; with ``--full`` also both crossing legs completed and fewer
@@ -171,7 +174,44 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    trace logger (which must be built), read back equal to the history;
    ``utils.metrics.trace`` around one flagship MPC step (ADMM cap 1)
    writes a profiler trace whose kernel events name K1; ``plot_path`` on
-   both drivers (a PNG, or nothing without matplotlib, printed).
+   both drivers (a PNG, or nothing without matplotlib, printed);
+16. the vehicle axis over ranks (``parallel.mesh``, ``parallel.multihost``):
+   ``tools/multihost_smoke_torch.py`` ranks that share the one card run
+   the batch of phase 10 (16 scenarios x 2 vehicles, float64, staged
+   locals and edges) through ``make_consensus_spmd_step(planner, mesh)``
+   (its first 2 MPC steps on 1x2, its first on the others): on a 1x2
+   mesh over gloo (one vehicle a rank;
+   CUDA tensors in the collectives, since NCCL refuses two ranks on one
+   GPU) and a 2x1 scenario mesh over gloo, equal ADMM iterations and
+   converged flags and states within 1e-12 of phase 10's one-device run
+   (whether bit for bit printed), and a one-rank NCCL world, bit for bit;
+   in each rank the K1 launches equal its block solves, at its blocks'
+   shapes ((16, 7, 19) and (16, 7, 20) on 1x2; (16, 7, 19) and (8, 7, 20)
+   on 2x1); wall per executed ADMM iteration (phase 10's beside), the
+   collectives' share of it and each rank's reserved memory printed;
+17. the consensus planner's options: one flagship float64 MPC step each
+   (ADMM cap 6) of ``edge_prox=1.0``, ``branch_commit`` (``commit_after``
+   3) and ``mpc_step_trace`` (6 iterations, both options) from JAX's carry at
+   step 11, on the kernels, against ``tests/data/obca_options_ref.npz``
+   (states within 1e-6 and equal ADMM iterations where JAX, its start
+   moved by 1e-12, does not leave itself) and against the same run on the
+   kernels' plain version (1e-9, equal iterations), launches equal to
+   block solves.
+
+Each phase prints its wall seconds on a line of its own ("phase N ...:
+X s"). To keep the run under 1,000 s on the card with phases 16-17
+(1,199 s before these cuts, 956 s with the first half of them, on one
+card each), the default run drives 3 fixed-dual steps (was 6), 8 ALADIN
+steps (was 22), 2 float64 batch steps (was 6; the slowest lane alone its
+first, was all), 8 centralized steps (was 35) and 12 classic PI-ADMM
+steps (was 23); phase 3 times only the path shapes, in the variant the
+staged solver asks for (float64 plain, float32 equilibrated; was every
+shape in both, and the cluster kernel forced at 66 and 80 beside the
+wide kernel), the big kernel beside the cluster kernel at 108 only, and
+solves each system's plain version once for all the kernels held to
+it; phase 7 times the kernels line's blocks and the float64 batch's (was
+every block); phase 16 runs 2 steps on 1x2 and 1 on the others; phase 17
+caps the options' steps at 6 ADMM iterations.
 
 Every path is driven with the launch counts set to 0 just before and read
 just after. Prints, before the last line, one JSON object with the kernels'
@@ -182,11 +222,15 @@ prints no result.
 Usage: python3 chip_smoke.py [--full] [--full-batch] [--out PATH.json]
 """
 import argparse
+import contextlib
 import json
 import os
 import re
 import shutil
+import socket
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
@@ -206,6 +250,8 @@ FIXTURE_CEN_V4 = os.path.join(DATA, "obca_centralized_v4_ref.npz")
 FIXTURE_CLASSIC = os.path.join(DATA, "pi_admm_classic_ref.npz")
 FIXTURE_BILEVEL = os.path.join(DATA, "bilevel_ref.npz")
 FIXTURE_ALADIN = os.path.join(DATA, "aladin_ref.npz")
+FIXTURE_OPTIONS = os.path.join(DATA, "obca_options_ref.npz")
+RANK_SCRIPT = os.path.join(ROOT, "tools", "multihost_smoke_torch.py")
 SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (256, 7, 19))   # B <= 32
 # the batched driver's edge solves (its locals are (32, 7, 19) above)
 BATCH_SHAPES = ((16, 7, 20),)
@@ -291,6 +337,28 @@ PI_CONV_FRAC_GATE = 0.93
 # gates of :266 (minimum centre distance, share of lane-steps under the
 # 0.01 residuals) and the float32 steps the default run takes
 BATCH_STEPS = 20
+# the default run's float64 batch: the first 2 of the fixture's 6 steps
+# (6 before phases 16-17 joined the run), all before JAX's chaotic step
+BATCH_SMOKE_STEPS = 2
+# the shapes phase 3 times (in the staged solver's variant of each type):
+# the ones a driven path gives K1; the synthetic ones are held to the plain
+# version untimed (their rows in PERF.md are earlier PRs')
+PATH_SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (16, 7, 20), (4, 7, 33),
+               (1, 7, 80), (1, 14, 34), (1, 14, 66), (1, 14, 108),
+               (1, 7, 320))
+# the run blocks phase 7 times: those of the kernels line and the batch's
+TIMED_RUN_BLOCKS = (("slice float64", (2, 7, 19)),
+                    ("multi-vehicle V=4 float64", (1, 7, 80)),
+                    ("centralized float64", (1, 14, 34)),
+                    ("centralized V=4 float64", (1, 14, 108)),
+                    ("consensus V=8 float64", (1, 7, 320)),
+                    ("batch float64", (32, 7, 19)),
+                    ("batch float64", (16, 7, 20)))
+# the default run's depth on the centralized planner (35 steps before
+# phases 16-17; JAX leaves itself from step 5) and the classic layout (23,
+# through JAX's own chaotic step 22, before them)
+CEN_SMOKE_STEPS = 8
+CLASSIC_SMOKE_STEPS = 12
 BATCH_MIN_DIST_GATE = 3.0
 BATCH_RES_OK_SHARE = 0.85
 BATCH_F32_SMOKE_STEPS = 2
@@ -315,18 +383,28 @@ ELASTIC_TOL = (1e-12, 1e-6)             # absolute, relative
 DUAL_KKT_TOL = (1e-12, 1e-4)
 # the steps the default run drives (driver's defaults otherwise; the JAX
 # fixture holds the whole 42 / 62 / 62 steps, which --full runs; 12 before
-# phase 15 joined the run, cut to keep the whole run near 900 s) and the
-# gates of tests/test_bilevel.py and tests/test_multivehicle.py:90-104
-FIXED_DUAL_SMOKE_STEPS = 6
+# phase 15 joined the run, 6 before phases 16-17 did, each cut to keep the
+# whole run under 1,000 s) and the gates of tests/test_bilevel.py and
+# tests/test_multivehicle.py:90-104
+FIXED_DUAL_SMOKE_STEPS = 3
 FIXED_DUAL_MIN_DIST = 3.5
 V4_LANE_Y = (0.0, 0.0, 6.0, 6.0)
 V4_LANE_TOL_M = 2.0
 # tests/test_aladin.py:142-176's gates on the crossing; the default run
-# drives its first 22 steps (through the conflict onset, up to the step
-# where JAX, its start moved by 1e-12, leaves itself), --full all 45
+# drives its first 8 steps (22 before phases 16-17 joined the run: through
+# the conflict onset, up to the step where JAX, its start moved by 1e-12,
+# leaves itself), --full all 45
 ALADIN_MIN_DIST = 1.5
 ALADIN_MAX_TOTAL_ITERS = 500
-ALADIN_SMOKE_STEPS = 22
+ALADIN_SMOKE_STEPS = 8
+# phase 16: the bench batch's first MPC steps through the vehicle-sharded
+# step (all before JAX's own chaotic step, 6), held to phase 10's
+# one-device run; a rank process that takes longer than this fails
+SHARDED_STEPS = 2            # the 1x2 run; the 2x1 and NCCL runs take 1
+SHARDED_TOL = 1e-12
+RANK_TIMEOUT_S = 600
+# phase 17: the options' runs on the kernels against their plain version
+OPTIONS_PLAIN_TOL = 1e-9
 DEVICE = "cuda"
 # NVIDIA H100 SXM data sheet: HBM3 rate and the card's peaks for the type:
 # FP64 on the tensor cores (67 TFLOP/s; the vector units give half that),
@@ -345,6 +423,16 @@ EARLIER_FULL_F64 = dict(res_ok=42, mean_iterations=16.0,
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def phase(records, name):
+    """Time one phase: its wall seconds printed on a line of their own and
+    kept in ``records["phase_s"]``."""
+    t0 = time.perf_counter()
+    yield
+    sec = records.setdefault("phase_s", {})[name] = time.perf_counter() - t0
+    log(f"phase {name}: {sec:.1f} s")
 
 
 def nvidia_smi():
@@ -486,9 +574,9 @@ def timings(thomas, diag, upper, rhs, equilibrate, other=None):
     """Device times of one solve: the kernel the wrapper picks (``ms``), a
     second kernel forced onto the same call (``<other>_ms``: the wide
     kernel where the wrapper picks the warp kernel, the big kernel where it
-    picks the cluster kernel, unless ``other`` names one; the two timed in
-    turns: picked, other, other, picked), the plain version, and the
-    library yardstick."""
+    picks the cluster kernel, unless ``other`` names one or is False for
+    none; the two timed in turns: picked, other, other, picked), the plain
+    version, and the library yardstick."""
     s, t, b = rhs.shape
 
     def run(kernel):
@@ -499,7 +587,8 @@ def timings(thomas, diag, upper, rhs, equilibrate, other=None):
         return 2 if kernel == "big" else 20
 
     name = thomas.kernel_plan(s, t, b, rhs.dtype, equilibrate)["kernel"]
-    other = other or {"warp": "wide", "cluster": "big"}.get(name)
+    if other is None:
+        other = {"warp": "wide", "cluster": "big"}.get(name)
     row = {}
     if other:
         turns = [graph_ms(run(k), reps(k))
@@ -538,13 +627,17 @@ def backward_error(diag, upper, rhs, x):
 
 
 def compare(thomas, diag, upper, rhs, label, equilibrate=False, kernel=None,
-            timed=False, run_block=False, rowwise=False, other=None):
+            timed=False, run_block=False, rowwise=False, other=None,
+            want=None):
     """Kernel vs plain version on the same card tensors; raises past TOL
     (``run_block``: past RUN_TOL, or a backward error above 4 times the
     plain version's and 10 units of rounding; componentwise, or with
-    ``rowwise`` row by row)."""
+    ``rowwise`` row by row). ``want``: the plain version's solution of
+    these tensors where the caller has it already."""
+    t0 = time.perf_counter()
     got = thomas.launch_kernel(diag, upper, rhs, equilibrate, kernel)
-    want = thomas.block_thomas_plain(diag, upper, rhs, equilibrate)
+    if want is None:
+        want = thomas.block_thomas_plain(diag, upper, rhs, equilibrate)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise RuntimeError(f"{label}: kernel output not finite")
@@ -573,6 +666,7 @@ def compare(thomas, diag, upper, rhs, label, equilibrate=False, kernel=None,
                 diag, upper, rhs, torch.linalg.solve(a, r))
     if timed:
         row.update(timings(thomas, diag, upper, rhs, equilibrate, other))
+    row["wall_s"] = time.perf_counter() - t0
     log(json.dumps(row))
     if not rel_err <= tol:
         raise RuntimeError(f"{label}: kernel vs plain rel err {rel_err:.3e} "
@@ -918,144 +1012,175 @@ def smoke(args, records):
     log(f"nvidia-smi: {smi}")
 
     # -- 2. build -------------------------------------------------------
-    t0 = time.perf_counter()
-    ptxas = thomas.build()
-    build_s = time.perf_counter() - t0
-    log(f"build: {', '.join(ptxas)} in {build_s:.2f} s")
-    # every width class of each type, plain and (where built) equilibrated,
-    # and one profiling build of each type
-    wide_builds = sum(len(thomas.wide_classes(dt, eq))
-                      for dt in thomas.WIDE_CLASSES
-                      for eq in (False, True)) + 2
-    main_path_plans = [
-        (str(dt)[6:].replace("float", "f"), eq,
-         thomas.kernel_plan(1, 7, b, dt, eq)) for dt, eq, b in (
-            (torch.float64, False, 33), (torch.float64, False, 80),
-            (torch.float32, True, 45), (torch.float64, False, 34),
-            (torch.float64, False, 66), (torch.float32, True, 34))]
-    records.update(build_s=build_s, ptxas=report_build(ptxas, wide_builds,
-                                                       main_path_plans))
-    # clusters of the cluster kernel's plans the card runs at once; a launch
-    # of S systems takes ceil(S / that) waves
-    occ = records["cluster_occupancy"] = []
-    for b in (108, 264, 320):
-        for dt, eq in ((torch.float64, False), (torch.float32, True)):
-            plan = thomas.kernel_plan(1, 7, b, dt, eq)
-            n = thomas.cluster_max_active(b, dt, eq)
-            row = dict(b=b, dtype=str(dt)[6:], equilibrated=eq,
-                       cluster=plan["cluster"], prefetch=plan["prefetch"],
-                       smem_bytes=plan["smem_bytes"], max_active_clusters=n,
-                       waves={sys: -(-sys // max(n, 1)) for sys in (1, 2, 16)})
-            log("  " + json.dumps(row))
-            occ.append(row)
-            if n < 1:
-                raise RuntimeError(f"the card runs no cluster of the plan "
-                                   f"{plan}")
+    with phase(records, "2 build"):
+        t0 = time.perf_counter()
+        ptxas = thomas.build()
+        build_s = time.perf_counter() - t0
+        log(f"build: {', '.join(ptxas)} in {build_s:.2f} s")
+        # every width class of each type, plain and (where built) equilibrated,
+        # and one profiling build of each type
+        wide_builds = sum(len(thomas.wide_classes(dt, eq))
+                          for dt in thomas.WIDE_CLASSES
+                          for eq in (False, True)) + 2
+        main_path_plans = [
+            (str(dt)[6:].replace("float", "f"), eq,
+             thomas.kernel_plan(1, 7, b, dt, eq)) for dt, eq, b in (
+                (torch.float64, False, 33), (torch.float64, False, 80),
+                (torch.float32, True, 45), (torch.float64, False, 34),
+                (torch.float64, False, 66), (torch.float32, True, 34))]
+        records.update(build_s=build_s, ptxas=report_build(ptxas, wide_builds,
+                                                           main_path_plans))
+        # clusters of the cluster kernel's plans the card runs at once; a launch
+        # of S systems takes ceil(S / that) waves
+        occ = records["cluster_occupancy"] = []
+        for b in (108, 264, 320):
+            for dt, eq in ((torch.float64, False), (torch.float32, True)):
+                plan = thomas.kernel_plan(1, 7, b, dt, eq)
+                n = thomas.cluster_max_active(b, dt, eq)
+                row = dict(b=b, dtype=str(dt)[6:], equilibrated=eq,
+                           cluster=plan["cluster"], prefetch=plan["prefetch"],
+                           smem_bytes=plan["smem_bytes"], max_active_clusters=n,
+                           waves={k: -(-k // max(n, 1))
+                                  for k in (1, 2, 16)})
+                log("  " + json.dumps(row))
+                occ.append(row)
+                if n < 1:
+                    raise RuntimeError(f"the card runs no cluster of the plan "
+                                       f"{plan}")
 
     # -- 3. kernel vs plain version -------------------------------------
-    rng = np.random.default_rng(0)
-    synth = records["kernel_vs_plain"] = []
-    for dtype in (torch.float64, torch.float32):
-        for s, t, b in (SHAPES + WIDE_SHAPES + BATCH_SHAPES + T14_SHAPES
-                        + BIG_SHAPES):
-            for kind_, eq in VARIANTS:
+    with phase(records, "3 kernels vs plain"):
+        rng = np.random.default_rng(0)
+        synth = records["kernel_vs_plain"] = []
+        for dtype in (torch.float64, torch.float32):
+            for s, t, b in (SHAPES + WIDE_SHAPES + BATCH_SHAPES + T14_SHAPES
+                            + BIG_SHAPES):
+                for kind_, eq in VARIANTS:
+                    d, u, r = (torch.as_tensor(a, dtype=dtype, device=dev)
+                               for a in make_system(rng, s, t, b, kind_))
+                    label = (f"{kind_} S={s} T={t} B={b} {str(dtype)[6:]}"
+                             f"{' equilibrated' if eq else ''}")
+                    # timed at the path shapes in the variant the staged
+                    # solver asks for in each type (every shape in both
+                    # variants until phases 16-17 joined the run)
+                    timed = (kind_ == "diag_dominant"
+                             and eq == (dtype != torch.float64)
+                             and (s, t, b) in PATH_SHAPES)
+                    # the big kernel is timed beside the cluster kernel at
+                    # the path width 108 only (no path launches it; its
+                    # 264 and 320 times are the earlier runs' in PERF.md)
+                    other = False if b in (264, 320) else None
+                    want = thomas.block_thomas_plain(d, u, r, eq)
+                    synth.append(compare(thomas, d, u, r, label, eq,
+                                         timed=timed, other=other,
+                                         want=want))
+                    if b <= thomas.WARP_MAX_B:
+                        synth.append(compare(thomas, d, u, r, label, eq,
+                                             kernel="wide", want=want))
+                    if (s, t, b) in BIG_SHAPES:
+                        synth.append(compare(thomas, d, u, r, label, eq,
+                                             kernel="big", want=want))
+            # the cluster kernel at the wide kernel's path shapes, in the variant
+            # the staged solver asks for (timed beside the wide kernel until
+            # phases 16-17 joined the run)
+            for s, t, b in CLUSTER_FORCED_SHAPES:
+                eq = dtype != torch.float64
                 d, u, r = (torch.as_tensor(a, dtype=dtype, device=dev)
-                           for a in make_system(rng, s, t, b, kind_))
-                label = (f"{kind_} S={s} T={t} B={b} {str(dtype)[6:]}"
-                         f"{' equilibrated' if eq else ''}")
-                # the big shapes are timed in the variant the staged solver
-                # asks for in each type (their plain version alone takes
-                # seconds to capture)
-                timed = kind_ == "diag_dominant" and (
-                    (s, t, b) not in BIG_SHAPES
-                    or eq == (dtype != torch.float64))
-                synth.append(compare(thomas, d, u, r, label, eq,
-                                     timed=timed))
-                if b <= thomas.WARP_MAX_B:
-                    synth.append(compare(thomas, d, u, r, label, eq,
-                                         kernel="wide"))
-                if (s, t, b) in BIG_SHAPES:
-                    synth.append(compare(thomas, d, u, r, label, eq,
-                                         kernel="big"))
-        # the cluster kernel at the wide kernel's path shapes, in the variant
-        # the staged solver asks for (timed beside the wide kernel)
-        for s, t, b in CLUSTER_FORCED_SHAPES:
-            eq = dtype != torch.float64
-            d, u, r = (torch.as_tensor(a, dtype=dtype, device=dev)
-                       for a in make_system(rng, s, t, b, "diag_dominant"))
-            synth.append(compare(
-                thomas, d, u, r, f"diag_dominant S={s} T={t} B={b} "
-                f"{str(dtype)[6:]}{' equilibrated' if eq else ''}", eq,
-                kernel="cluster", timed=True, other="cluster"))
-    records["cluster_clock_split"] = cluster_split(thomas, rng, dev)
+                           for a in make_system(rng, s, t, b, "diag_dominant"))
+                synth.append(compare(
+                    thomas, d, u, r, f"diag_dominant S={s} T={t} B={b} "
+                    f"{str(dtype)[6:]}{' equilibrated' if eq else ''}", eq,
+                    kernel="cluster"))
+        records["cluster_clock_split"] = cluster_split(thomas, rng, dev)
 
     # -- 4, 5. the slices -----------------------------------------------
-    systems = {}
-    paths = {}
-    for name, dtype, tol, same_its in (
-            ("slice float64", torch.float64, STATE_TOL, True),
-            ("slice float32", torch.float32, STATE_TOL_F32, False)):
-        res, counts, kkt = drive(
-            thomas, ip_staged, lambda: run_obca(
-                Formulation.CONSENSUS, n_steps=SMOKE_STEPS,
-                **flagship_profile(dtype)))
-        pl = res.extras["planner"]
-        check_slice(name, res, pl, refs[dtype], counts, dev, tol, same_its)
-        records[name] = slice_record(name, res, refs[dtype], counts,
-                                     pl.block_solves)
-        if len(kkt) != 2:
-            raise RuntimeError(f"{name}: expected local and edge KKT "
-                               f"shapes, got {sorted(kkt)}")
-        systems[name] = kkt
-        paths[name] = counts
+    with phase(records, "4-5 slices"):
+        systems = {}
+        paths = {}
+        for name, dtype, tol, same_its in (
+                ("slice float64", torch.float64, STATE_TOL, True),
+                ("slice float32", torch.float32, STATE_TOL_F32, False)):
+            res, counts, kkt = drive(
+                thomas, ip_staged, lambda: run_obca(
+                    Formulation.CONSENSUS, n_steps=SMOKE_STEPS,
+                    **flagship_profile(dtype)))
+            pl = res.extras["planner"]
+            check_slice(name, res, pl, refs[dtype], counts, dev, tol, same_its)
+            records[name] = slice_record(name, res, refs[dtype], counts,
+                                         pl.block_solves)
+            if len(kkt) != 2:
+                raise RuntimeError(f"{name}: expected local and edge KKT "
+                                   f"shapes, got {sorted(kkt)}")
+            systems[name] = kkt
+            paths[name] = counts
 
     # -- 6. the multi-vehicle path --------------------------------------
-    for num_veh, dtype, expect, tol in (
-            (4, torch.float64, ("wide",), STATE_TOL),
-            (3, torch.float32, ("warp", "wide"), STATE_TOL_F32)):
-        name = f"multi-vehicle V={num_veh} {str(dtype)[6:]}"
-        records[name], systems[name] = multi_vehicle(
-            thomas, ip_staged, run_obca, Formulation, num_veh, dtype, expect,
-            tol, ref_v4 if num_veh == 4 else None)
+    with phase(records, "6 multi-vehicle"):
+        for num_veh, dtype, expect, tol in (
+                (4, torch.float64, ("wide",), STATE_TOL),
+                (3, torch.float32, ("warp", "wide"), STATE_TOL_F32)):
+            name = f"multi-vehicle V={num_veh} {str(dtype)[6:]}"
+            records[name], systems[name] = multi_vehicle(
+                thomas, ip_staged, run_obca, Formulation, num_veh, dtype, expect,
+                tol, ref_v4 if num_veh == 4 else None)
+            paths[name] = records[name]["launches"]
+        name = "4-vehicle run vs JAX"
+        records[name] = v4_against_jax(thomas, ip_staged, run_obca, Formulation,
+                                       ref_v4)
         paths[name] = records[name]["launches"]
-    name = "4-vehicle run vs JAX"
-    records[name] = v4_against_jax(thomas, ip_staged, run_obca, Formulation,
-                                   ref_v4)
-    paths[name] = records[name]["launches"]
 
     # -- 10. the scenario-batched driver (bench.py's third metric) -----
-    records["batch"] = batch_path(thomas, ip_staged, paths, systems, refs,
-                                  records["slice float64"], smi)
+    with phase(records, "10 scenario batch"):
+        records["batch"], one_device = batch_path(
+            thomas, ip_staged, paths, systems, refs,
+            records["slice float64"], smi)
 
     # -- 11. the centralized joint planner (K1 at T = 14) --------------
-    records["centralized"] = centralized_path(thomas, ip_staged, paths,
-                                              systems, smi)
+    with phase(records, "11 centralized"):
+        records["centralized"] = centralized_path(thomas, ip_staged, paths,
+                                                  systems, smi)
 
     # -- 7. the kernels on the KKT blocks those runs gave them ----------
-    real = records["kernel_on_run_blocks"] = []
-    for name, kkt in systems.items():
-        for key in sorted(kkt):
-            d, u, r = kkt[key]
-            real.append(dict(compare(
-                thomas, d, u, r, f"{name} KKT S={key[0]} T={key[1]} "
-                f"B={key[2]}", r.dtype != torch.float64, timed=True,
-                run_block=True, rowwise=name in ROWWISE_PATHS), path=name))
-    records["clock_split"] = clock_split(thomas, systems)
+    with phase(records, "7 kernels on run blocks"):
+        real = records["kernel_on_run_blocks"] = []
+        for name, kkt in systems.items():
+            for key in sorted(kkt):
+                d, u, r = kkt[key]
+                real.append(dict(compare(
+                    thomas, d, u, r, f"{name} KKT S={key[0]} T={key[1]} "
+                    f"B={key[2]}", r.dtype != torch.float64,
+                    timed=(name, key) in TIMED_RUN_BLOCKS, run_block=True,
+                    rowwise=name in ROWWISE_PATHS), path=name))
+        records["clock_split"] = clock_split(thomas, systems)
 
     # -- 9. the PI-ADMM path (bench.py's first metric) -----------------
-    records["pi_admm"] = pi_admm_path(thomas, paths, smi)
+    with phase(records, "9 PI-ADMM"):
+        records["pi_admm"] = pi_admm_path(thomas, paths, smi)
 
     # -- 12. the classic PI-ADMM layout (run_pi_admm's default) --------
-    records["classic"] = classic_path(thomas, paths, smi, args.full)
+    with phase(records, "12 classic PI-ADMM"):
+        records["classic"] = classic_path(thomas, paths, smi, args.full)
 
     # -- 13. the bilevel and tightening planners ------------------------
-    records["fixed_dual"] = fixed_dual_path(thomas, paths, smi, args.full)
+    with phase(records, "13 fixed-dual"):
+        records["fixed_dual"] = fixed_dual_path(thomas, paths, smi, args.full)
 
     # -- 14. ALADIN -------------------------------------------------------
-    records["aladin"] = aladin_path(thomas, paths, smi, args.full)
+    with phase(records, "14 ALADIN"):
+        records["aladin"] = aladin_path(thomas, paths, smi, args.full)
 
     # -- 15. checkpoint / resume, the trace stream, profiling, plots -----
-    records["resume"] = resume_path(thomas, ip_staged, paths, smi)
+    with phase(records, "15 checkpoint/resume"):
+        records["resume"] = resume_path(thomas, ip_staged, paths, smi)
+
+    # -- 16. the vehicle axis over ranks that share the card ------------
+    with phase(records, "16 sharded"):
+        records["sharded"] = sharded_path(thomas, paths, one_device,
+                                          records["batch"]["float64"], smi)
+
+    # -- 17. the consensus planner's options ----------------------------
+    with phase(records, "17 options"):
+        records["options"] = options_path(thomas, ip_staged, paths, smi)
 
     # -- 8. --full ------------------------------------------------------
     failures = []
@@ -1182,11 +1307,12 @@ def batch_numbers(res, wall, smi):
 def batch_path(thomas, ip_staged, paths, systems, refs, single, smi):
     """Phase 10: the scenario batch at bench width on the card, float64
     against the JAX fixture, float32 on the bench's gates, and a dense /
-    joint batched step against the CPU."""
+    joint batched step against the CPU. Returns the records and the float64
+    run's host arrays (phase 16 holds the sharded step to them)."""
     out = {}
     ref = np.load(FIXTURE_BATCH)
     prof = json.loads(str(ref["profile"]))
-    n = prof["steps"]
+    n = min(BATCH_SMOKE_STEPS, prof["steps"])
     # -- 10.1 float64 against the JAX run ---------------------------------
     name = "batch float64"
     pl, inits, res, wall, counts, kkt = batch_run(
@@ -1203,13 +1329,13 @@ def batch_path(thomas, ip_staged, paths, systems, refs, single, smi):
     systems[name] = kkt
     paths[name] = counts
     states, its = res[0], res[1]
-    err = np.abs(states[1:] - ref["states"][1:]).max(axis=(2, 3)).T
-    chaotic = ref["chaotic_from"]
+    err = np.abs(states[1:] - ref["states"][1:n + 1]).max(axis=(2, 3)).T
+    chaotic = np.minimum(ref["chaotic_from"], n)
     lanes = []
     for lane in range(its.shape[0]):
         strict = int(chaotic[lane])
         row = dict(lane=lane, iterations=its[lane].tolist(),
-                   jax_iterations=ref["iterations"][lane].tolist(),
+                   jax_iterations=ref["iterations"][lane, :n].tolist(),
                    max_state_err_per_step=err[lane].tolist(),
                    strict_steps=strict)
         log(f"{name} vs JAX: " + json.dumps(row))
@@ -1247,6 +1373,7 @@ def batch_path(thomas, ip_staged, paths, systems, refs, single, smi):
                                   if k != "lanes_vs_jax"}))
     out["float64"] = nums
     out["one_lane"] = one_lane(thomas, ip_staged, pl, inits, res, nums)
+    one_device = res
     # -- 10.2 float32, bench.py's gates over its first steps --------------
     name = "batch float32"
     pl, _, res, wall, counts, kkt = batch_run(
@@ -1262,19 +1389,21 @@ def batch_path(thomas, ip_staged, paths, systems, refs, single, smi):
         raise RuntimeError(f"{name} fails bench.py's gates: {nums['gates']}")
     out["float32"] = nums
     out["dense_joint_step"] = dense_joint_step(thomas, paths)
-    return out
+    return out, one_device
 
 
 def one_lane(thomas, ip_staged, pl, inits, res, nums):
     """S = 1 beside S = 16: the batch's slowest lane (the most ADMM
     iterations over the run, as many as the batch executed) run alone
-    through the same driver; equal iterations and states within 1e-6 of
-    its lane in the batch (the distance printed), and its wall per ADMM
-    iteration beside the batch's wall per executed iteration."""
+    through the same driver over the run's first step; equal iterations
+    and states within 1e-6 of its lane in the batch (the distance
+    printed), and its wall per ADMM iteration beside the batch's wall per
+    executed iteration."""
     from dlp_admm_torch.parallel.consensus_spmd import run_scenario_batch
     its = res[1]
     lane = int(its.sum(axis=1).argmax())
-    n = its.shape[1]
+    n = 1                # its first step (every step of the batch before)
+    its = its[:, :n]
 
     def run():
         torch.cuda.synchronize()
@@ -1284,7 +1413,7 @@ def one_lane(thomas, ip_staged, pl, inits, res, nums):
         return alone, time.perf_counter() - t0
 
     (alone, wall), counts, _ = drive(thomas, ip_staged, run)
-    err = float(np.abs(alone[0][:, 0] - res[0][:, lane]).max())
+    err = float(np.abs(alone[0][:, 0] - res[0][:n + 1, lane]).max())
     row = dict(lane=lane, iterations=alone[1][0].tolist(),
                batch_iterations=its[lane].tolist(), wall_s=wall,
                admm_iterations=int(alone[1].sum()),
@@ -1700,8 +1829,10 @@ def centralized_path(thomas, ip_staged, paths, systems, smi):
 
     # -- 11.1 run_obca(CENTRALIZED), float64, against the JAX run ---------
     name = "centralized float64"
+    n = min(prof["steps"], CEN_SMOKE_STEPS)
     res, counts, kkt, replays, wall = drive_centralized(
-        thomas, ip_staged, lambda: run_obca(Formulation.CENTRALIZED))
+        thomas, ip_staged, lambda: run_obca(Formulation.CENTRALIZED,
+                                            n_steps=n))
     pl = res.extras["planner"]
     check_counts(name, counts, pl.block_solves, ("wide",))
     if sorted(kkt) != [(1, 14, 34)]:
@@ -1710,20 +1841,19 @@ def centralized_path(thomas, ip_staged, paths, systems, smi):
     systems[name] = kkt
     paths[name] = counts
     its = np.asarray(res.metrics.iter_history)
-    n = prof["steps"]
     if res.states.shape != (n + 1, 2, 5) or not np.all(
             np.isfinite(res.states)):
         raise RuntimeError(f"{name}: states {res.states.shape} not finite "
                            f"or not {(n + 1, 2, 5)}")
-    err = np.abs(res.states[1:] - ref["states"][1:]).max(axis=(1, 2))
-    strict = int(ref["chaotic_from"])
+    err = np.abs(res.states[1:] - ref["states"][1:n + 1]).max(axis=(1, 2))
+    strict = min(int(ref["chaotic_from"]), n)
     # a solve converged where its final KKT error is under ip_tol (1e-6)
     row = dict(iterations=its.tolist(),
-               jax_iterations=ref["iterations"].tolist(),
+               jax_iterations=ref["iterations"][:n].tolist(),
                max_state_err_per_step=err.tolist(), strict_steps=strict,
                converged=int(np.sum(np.asarray(
                    res.metrics.extras["kkt"]) < pl.scfg.ip_tol)),
-               jax_converged=int(ref["converged"].sum()))
+               jax_converged=int(ref["converged"][:n].sum()))
     log(f"{name} vs JAX: " + json.dumps(row))
     if not np.array_equal(its[:strict], ref["iterations"][:strict]):
         raise RuntimeError(f"{name}: IP iterations differ from JAX before "
@@ -1926,10 +2056,11 @@ def classic_path(thomas, paths, smi, full):
     prof = json.loads(str(ref["profile"]))
     # -- 12.1 run_pi_admm() against the JAX run ----------------------------
     name = "PI-ADMM classic float64"
-    strict = int(ref["chaotic_from"])
-    # the default run drives the steps held strictly (through JAX's own
-    # chaotic step), --full all of them
-    n = len(ref["xt"]) if full else strict + 1
+    # the default run drives the first CLASSIC_SMOKE_STEPS of the steps
+    # held strictly (through JAX's own chaotic step), --full all of them
+    n = len(ref["xt"]) if full else min(int(ref["chaotic_from"]) + 1,
+                                        CLASSIC_SMOKE_STEPS)
+    strict = min(int(ref["chaotic_from"]), n)
     res, wall = classic_run(thomas, name, paths, n_steps=n)
     its = np.asarray(res.metrics.iter_history)
     ref = {k: ref[k][:n] if k in ("xt", "iterations") else ref[k]
@@ -2365,7 +2496,240 @@ def resume_path(thomas, ip_staged, paths, smi):
         f"installed, else nothing)")
     shutil.rmtree(work, ignore_errors=True)
     out.update(wall_s=time.perf_counter() - t_phase, nvidia_smi=smi)
-    log(f"phase 15: {out['wall_s']:.1f} s")
+    return out
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(world, mesh, backend, steps):
+    """Run ``world`` ranks of ``tools/multihost_smoke_torch.py`` on the card
+    at once (the bench case, ``steps`` MPC steps, ``mesh`` "S,V"); prints
+    their output here (never after this script's last line) and returns
+    each rank's records. A rank that exits non-zero or outlives
+    RANK_TIMEOUT_S fails the phase; every rank is stopped on the way
+    out."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as out:
+        procs = [subprocess.Popen(
+            [sys.executable, RANK_SCRIPT, str(r), str(world), str(port),
+             "--device", torch.device(DEVICE).type, "--backend", backend,
+             "--mesh", mesh,
+             "--case", "bench", "--steps", str(steps), "--out", out,
+             "--threads", "4"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            for line in text.splitlines()[-30:]:
+                log(f"  [{mesh} {backend} rank {r}] {line}")
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {r} of the {mesh} mesh over "
+                                   f"{backend} exited {p.returncode}")
+        return [dict(np.load(os.path.join(out, f"rank{r}.npz")))
+                for r in range(world)]
+
+
+def stitch_bench(ranks, n_scen, n_veh, steps):
+    """The full ``(states [steps+1, S, V, 5], iterations [S, steps],
+    converged [S, steps])`` from the ranks' blocks; the per-scenario leaves
+    must be equal bit for bit on every rank of a vehicle group."""
+    states = np.full((steps + 1, n_scen, n_veh, 5), np.nan)
+    its = np.full((n_scen, steps), -1)
+    conv = np.zeros((n_scen, steps), bool)
+    seen = np.zeros(n_scen, bool)
+    for r in ranks:
+        s0, s1, v0, v1 = r["bench__index"]
+        states[:, s0:s1, v0:v1] = r["bench__states"]
+        if seen[s0:s1].all() and not (
+                np.array_equal(its[s0:s1], r["bench__iterations"])
+                and np.array_equal(conv[s0:s1], r["bench__converged"])):
+            raise RuntimeError("ranks of one vehicle group took other "
+                               "iterations or flags")
+        its[s0:s1] = r["bench__iterations"]
+        conv[s0:s1] = r["bench__converged"]
+        seen[s0:s1] = True
+    if not (seen.all() and np.all(np.isfinite(states))):
+        raise RuntimeError("the ranks' blocks do not cover the batch")
+    return states, its, conv
+
+
+def sharded_path(thomas, paths, one_device, batch_nums, smi):
+    """Phase 16: the vehicle-sharded consensus step
+    (``make_consensus_spmd_step(planner, mesh)``) at bench metric 3's width
+    (16 scenarios x 2 vehicles, the flagship's float64 profile, staged
+    locals and edges) over ranks that share the one card, its first
+    SHARDED_STEPS MPC steps on the 1x2 mesh (its first step on the others),
+    held to phase 10's one-device run of the same batch on this card
+    (``one_device``): on a 1x2 mesh over gloo (one vehicle a rank, CUDA
+    tensors in the collectives; NCCL refuses two ranks on one GPU) and a
+    2x1 scenario mesh over gloo, equal iterations and converged flags and
+    states within SHARDED_TOL; on a one-rank NCCL world, bit for bit. In each rank the K1 launches equal its block solves, at
+    its blocks' shapes (locals (S_blk·vb, 7, 19), edges (S_blk, 7, 20))."""
+    states1, its1, _, _, conv1, _ = one_device
+    n_scen, n_veh = its1.shape[0], states1.shape[2]
+    out = dict(one_device=dict(
+        path=f"batch float64 (phase 10, {BATCH_SMOKE_STEPS} steps)",
+        wall_per_executed_iteration_s=batch_nums[
+            "wall_per_executed_iteration_s"]), nvidia_smi=smi)
+    log(f"phase 16 on {smi}: the one-device batch (phase 10) took "
+        f"{out['one_device']['wall_per_executed_iteration_s']:.4f} s an "
+        f"executed ADMM iteration")
+    for world, mesh, backend, n in ((2, "1,2", "gloo", SHARDED_STEPS),
+                                    (2, "2,1", "gloo", 1),
+                                    (1, "1,1", "nccl", 1)):
+        name = f"sharded {mesh.replace(',', 'x')} {backend}"
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(world, mesh, backend, n)
+        wall = time.perf_counter() - t0
+        states, its, conv = stitch_bench(ranks, n_scen, n_veh, n)
+        err = float(np.abs(states - states1[:n + 1]).max())
+        bits = bool(np.array_equal(states, states1[:n + 1]))
+        same = bool(np.array_equal(its, its1[:, :n])
+                    and np.array_equal(conv, conv1[:, :n]))
+        n_s, n_v = (int(x) for x in mesh.split(","))
+        want = sorted([(n_scen // n_s * n_veh // n_v, 7, 19),
+                       (n_scen // n_s, 7, 20)])
+        per_rank = []
+        for r, rec in enumerate(ranks):
+            info = json.loads(str(rec["bench__info"]))
+            shapes = sorted(tuple(x) for x in info["kkt_shapes"])
+            per_rank.append(dict(
+                rank=r, index=rec["bench__index"].tolist(),
+                launches=info["launches"],
+                block_solves=info["block_solves"], kkt_shapes=shapes,
+                wall_s=info["wall_s"],
+                wall_per_executed_iteration_s=info[
+                    "wall_per_executed_iteration_s"],
+                executed_admm_iterations=info["executed_admm_iterations"],
+                collective_calls=info["collective_calls"],
+                collective_bytes=info["collective_bytes"],
+                collective_share=info["collective_share"],
+                memory_reserved_gib=info.get("memory_reserved_gib"),
+                max_memory_reserved_gib=info.get("max_memory_reserved_gib")))
+            paths[f"{name} rank {r}"] = info["launches"]
+            check_counts(f"{name} rank {r}", info["launches"],
+                         info["block_solves"], ("warp",))
+            if shapes != want:
+                raise RuntimeError(f"{name} rank {r}: KKT shapes {shapes}, "
+                                   f"expected {want}")
+        row = dict(mesh=mesh, backend=backend, ranks=world, steps=n,
+                   max_state_err_vs_one_device=err, bit_equal=bits,
+                   same_iterations_and_flags=same, iterations=its.tolist(),
+                   spawn_wall_s=wall, per_rank=per_rank)
+        log(f"{name}: " + json.dumps(row))
+        log(f"{name}: states {'equal bit for bit to' if bits else 'within '}"
+            f"{'' if bits else f'{err:.3e} of'} phase 10's one-device run")
+        out[name] = row
+        if not (same and err <= SHARDED_TOL):
+            raise RuntimeError(f"{name}: differs from the one-device run "
+                               f"(states {err:.3e}, same iterations and "
+                               f"flags: {same})")
+        if backend == "nccl" and not bits:
+            raise RuntimeError(f"{name}: the one-rank world is not bit-equal "
+                               f"to the one-device step")
+    return out
+
+
+def options_path(thomas, ip_staged, paths, smi):
+    """Phase 17: the consensus planner's options, one flagship float64 MPC
+    step each (the fixture's ADMM cap, 6) from JAX's carry at the
+    fixture's step, on the kernels:
+    ``edge_prox``, ``branch_commit`` and ``mpc_step_trace`` of a planner
+    with both at the fixture's ``trace_iters``. Each run is held against
+    the committed JAX run ``tests/data/obca_options_ref.npz`` (states within
+    STATE_TOL, equal ADMM iterations; where JAX, its start moved by 1e-12,
+    leaves itself, the comparison is printed, not gated) and against the
+    same run on the kernels' plain version (OPTIONS_PLAIN_TOL, equal
+    iterations), the launches equal to its block solves."""
+    from dlp_admm_torch.config import ObcaConfig, SolverConfig
+    from dlp_admm_torch.interop import bar_state_from_numpy
+    from dlp_admm_torch.models.obca import BarState, ConsensusObcaPlanner
+    ref = np.load(FIXTURE_OPTIONS)
+    prof = json.loads(str(ref["profile"]))
+    k = prof["step"]
+    state = torch.as_tensor(ref["carry_state"], device=DEVICE)
+    bs = bar_state_from_numpy({f: ref[f"carry_bs_{f}"]
+                               for f in BarState._fields}, device=DEVICE)
+
+    def plain(diag, upper, rhs):
+        return thomas.block_thomas_plain(diag, upper, rhs, False)
+
+    out = dict(step=k, nvidia_smi=smi)
+    for run, kw in prof["runs"].items():
+        name = f"option {run}"
+        pl = ConsensusObcaPlanner(
+            ObcaConfig(**{**prof["planner"]["ocfg"], **prof["ocfg"]}),
+            scfg=SolverConfig(**prof["planner"]["scfg"]),
+            **prof["planner"]["planner"], **kw, device=DEVICE)
+
+        def one():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if run == "trace":
+                c, hist = pl.mpc_step_trace(state, bs, k,
+                                            prof["trace_iters"])
+                res = (c["xs"].cpu().numpy(), prof["trace_iters"],
+                       c["d_bar"].cpu().numpy(),
+                       hist["primal"].cpu().numpy())
+            else:
+                o = pl._mpc_step(state, bs, k)
+                res = (o[0].cpu().numpy(), int(o[2]),
+                       o[1].z_bar.cpu().numpy(), float(o[3]))
+            return res, time.perf_counter() - t0
+
+        solves0 = pl.block_solves
+        (got, wall), counts, _ = drive(thomas, ip_staged, one)
+        check_counts(name, counts, pl.block_solves - solves0, ("warp",))
+        (want, plain_wall), plain_counts, _ = drive(thomas, ip_staged, one,
+                                                    solve=plain)
+        if sum(plain_counts.values()):
+            raise RuntimeError(f"{name}: the plain run launched "
+                               f"{plain_counts}")
+        if run == "trace":
+            jax_states, jax_its = ref["trace__xs"], prof["trace_iters"]
+        else:
+            jax_states, jax_its = ref[f"{run}__out_0"], int(
+                ref[f"{run}__out_2"])
+        jax_err = float(np.abs(got[0] - jax_states).max())
+        plain_err = max(float(np.abs(a - b).max())
+                        for a, b in zip(got[:3:2], want[:3:2]))
+        chaotic = bool(ref[f"{run}__chaotic"])
+        row = dict(option=kw, iterations=got[1], jax_iterations=jax_its,
+                   plain_iterations=want[1], max_state_err_vs_jax=jax_err,
+                   jax_leaves_itself=chaotic,
+                   max_err_vs_plain=plain_err, launches=counts,
+                   wall_s=wall, plain_wall_s=plain_wall)
+        if run == "trace":
+            row.update(d_bar_frozen=bool(np.abs(got[2]).max() > 0.5),
+                       max_d_bar_err_vs_jax=float(np.abs(
+                           got[2] - ref["trace__d_bar"]).max()),
+                       max_primal_rel_err_vs_jax=float(np.abs(
+                           got[3] - ref["trace__hist_primal"]).max()
+                           / np.abs(ref["trace__hist_primal"]).max()))
+        log(f"{name}: " + json.dumps(row))
+        paths[name] = counts
+        out[run] = row
+        if not (plain_err <= OPTIONS_PLAIN_TOL and got[1] == want[1]):
+            raise RuntimeError(f"{name}: differs from its plain-version run "
+                               f"({plain_err:.3e}, iterations {got[1]} "
+                               f"against {want[1]})")
+        if not chaotic and not (jax_err <= STATE_TOL and got[1] == jax_its
+                                and row.get("max_d_bar_err_vs_jax", 0.0)
+                                <= STATE_TOL):
+            raise RuntimeError(f"{name}: differs from the JAX run "
+                               f"({jax_err:.3e}, iterations {got[1]} "
+                               f"against {jax_its})")
     return out
 
 

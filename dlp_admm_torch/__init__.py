@@ -8,7 +8,9 @@ consensus-OBCA flagship (``models.obca.ConsensusObcaPlanner``,
 ``mpc.run_obca(Formulation.CONSENSUS)``) in float64 and float32 with the
 planner modes of its staged and dense interior-point solvers
 (``solvers.ip_staged``, ``solvers.ip``), its scenario-batched driver on one
-device (``parallel.consensus_spmd.run_scenario_batch``), the centralized
+device (``parallel.consensus_spmd.run_scenario_batch``) and with the vehicle
+axis over ``torch.distributed`` ranks (``parallel.mesh``,
+``parallel.multihost``), the centralized
 joint OBCA planner (``models.obca.CentralizedObcaPlanner``), the bilevel
 and tightening planners (``models.bilevel``), the PI-ADMM engine in its
 classic and pairwise layouts (``models.pi_admm``, ``mpc.run_pi_admm``) and
@@ -17,7 +19,8 @@ the ALADIN coordinator (``models.aladin``,
 (``utils``: checkpoint/resume of every planner's carry, the native trace
 stream, the profiler context, plots). The block-tridiagonal KKT solve of
 the staged solver is hand-written CUDA (``csrc/block_thomas_warp.cu``,
-``csrc/block_thomas_wide.cu``, ``csrc/block_thomas_big.cu``). Its entry
+``csrc/block_thomas_wide.cu``, ``csrc/block_thomas_cluster.cu``,
+``csrc/block_thomas_big.cu``). Its entry
 points run on the CUDA card unless the caller names another device.
 
 Importing the package turns TF32 off for float32 matmuls and convolutions,

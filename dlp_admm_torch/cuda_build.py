@@ -79,8 +79,12 @@ def _finish(out, tmp, cmd, proc) -> str:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
                            f"\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, out)        # atomic: a concurrent builder sees all or none
+    # atomic, the log first: a concurrent build or a rank that loads the
+    # library sees all of both or none
+    tmp_log = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, log_path)
+    os.replace(tmp, out)
     return log
 
 

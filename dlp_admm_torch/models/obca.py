@@ -32,9 +32,10 @@ blocks (paper eq. (4)/(5)/(6)):
     (4b)  A_i(x_i)^T l_i + A_j(x_j)^T l_j  = 0
     (4c)  ||A_i(x_i)^T l_i||^2 <= 1,  l >= 0
 
-``branch_commit``, ``edge_prox != 0`` and ``mpc_step_trace`` are not
-ported yet and raise ``NotImplementedError`` naming the ROADMAP item that
-holds them. ``ConsensusObcaPlanner.run`` saves its ``(init_state,
+The consensus planner carries every option of the JAX one: the edge's
+proximal term (``edge_prox``), the branch commitment (``branch_commit``,
+``commit_after``, ``commit_w``) and the fixed-length traced step
+``mpc_step_trace``. ``ConsensusObcaPlanner.run`` saves its ``(init_state,
 BarState)`` carry after every step with ``checkpoint_path`` and continues
 a saved run with ``resume=True`` (:mod:`..utils.checkpoint`). The
 scenario-batched step of :mod:`..parallel.consensus_spmd` builds its
@@ -59,9 +60,6 @@ from ..ops.pairs import pair_indices
 from ..solvers.ip import NLP, NLPSolution, solve_nlp, solve_nlp_batch
 from ..solvers.ip_staged import StagedNLP, solve_staged
 from ..utils.checkpoint import resume_carry, save_carry
-
-_TODO_OPTIONS = "ROADMAP.md queue 1, item 'ConsensusObcaPlanner options'"
-
 
 def resolve_device(device=None) -> torch.device:
     """The device a planner runs on: the CUDA card unless the caller names
@@ -467,12 +465,6 @@ class ConsensusObcaPlanner(_RecedingHorizon):
             raise ValueError(f"unknown local_warm_mode {local_warm_mode!r}")
         if edge_mode not in ("joint", "per_step", "staged"):
             raise ValueError(f"unknown edge_mode {edge_mode!r}")
-        for name, unported in (
-                ("branch_commit", branch_commit),
-                ("edge_prox != 0", edge_prox != 0.0)):
-            if unported:
-                raise NotImplementedError(
-                    f"{name} is not ported yet ({_TODO_OPTIONS})")
         _check_dtype(dtype)
         self.ocfg, self.vcfg, self.scfg = ocfg, vcfg, scfg
         self.lamb_ij_mode = lamb_ij_mode
@@ -530,6 +522,15 @@ class ConsensusObcaPlanner(_RecedingHorizon):
         # adaptive ratchet: hold tau while the primal residual falls, grow
         # it by prox_growth when it rises (instead of the scheduled anneal)
         self.prox_adaptive = bool(prox_adaptive)
+        # edge proximal term edge_prox/2 ||z - z_prev||^2 to the previous
+        # consensus iterate (see the JAX constructor)
+        self.edge_prox = float(edge_prox)
+        # branch commitment: from ADMM iteration commit_after on, the edge
+        # pays commit_w * relu(-<d(z), d_bar>)^2 per (pair, step) for
+        # leaving the pass side frozen in d_bar
+        self.branch_commit = bool(branch_commit)
+        self.commit_after = int(commit_after)
+        self.commit_w = float(commit_w)
         self._local_nlp = NLP(self._local_obj, self._local_ce, self._local_ci)
         self._edge_nlp = NLP(self._edge_obj, self._edge_ce, self._edge_ci)
         self._edge_nlp_t = NLP(self._edge_obj_t, self._edge_ce_t,
@@ -781,8 +782,9 @@ class ConsensusObcaPlanner(_RecedingHorizon):
         """obj = -sum_i Z_i lamb_bar_i + rho/2 sum_i ||local_fullx_i - Z_i||^2
         (ref ``edge_generate_object`` ``optimizer.py:297-307``)."""
         z = self._edge_split(x)
-        return (-torch.sum(z * p["lamb_bar"])
-                + p["rho"] / 2 * torch.sum((p["local_fullx"] - z) ** 2))
+        obj = (-torch.sum(z * p["lamb_bar"])
+               + p["rho"] / 2 * torch.sum((p["local_fullx"] - z) ** 2))
+        return self._edge_options(obj, z, p)
 
     def _edge_ce(self, x, p):
         """(6b): A(z_i)^T l_i^(j) + A(z_j)^T l_j^(i) = 0 per unordered pair
@@ -823,8 +825,22 @@ class ConsensusObcaPlanner(_RecedingHorizon):
 
     def _edge_obj_t(self, w, pk):
         z = w.reshape(self.num_veh, self.N_FULL)
-        return (-torch.sum(z * pk["lamb_bar"])
-                + pk["rho"] / 2 * torch.sum((pk["local_fullx"] - z) ** 2))
+        obj = (-torch.sum(z * pk["lamb_bar"])
+               + pk["rho"] / 2 * torch.sum((pk["local_fullx"] - z) ** 2))
+        return self._edge_options(obj, z, pk)
+
+    def _edge_options(self, obj, z, p):
+        """``obj`` plus the optional edge terms (JAX ``obca.py:799-804``) of
+        ``z [V, (N-1,) F]``: the proximal ``edge_prox/2 ||z - z_prev||^2``
+        and the branch commitment ``commit_w sum relu(-<d, d_bar>)^2`` on
+        the pair offsets ``d = z_i - z_j`` (positions)."""
+        if self.edge_prox:
+            obj = obj + self.edge_prox / 2 * torch.sum((z - p["z_prev"]) ** 2)
+        if self.branch_commit:
+            d = z[self.idx_i, ..., :2] - z[self.idx_j, ..., :2]
+            dot = torch.sum(d * p["d_bar"], dim=-1)
+            obj = obj + self.commit_w * torch.sum(torch.relu(-dot) ** 2)
+        return obj
 
     def _edge_stage_ce_link(self, w_prev, w, pk):
         return torch.zeros((0,), dtype=w.dtype, device=w.device)
@@ -984,16 +1000,23 @@ class ConsensusObcaPlanner(_RecedingHorizon):
         self.block_solves += lsol.block_solves
         return self._loc_from_staged(lsol.w, init_state), lsol
 
-    def _solve_edges(self, z_bar, local_fullx, lamb_bar, pair_mask, rho):
+    def _solve_edges(self, z_bar, local_fullx, lamb_bar, pair_mask, rho,
+                     d_bar=None):
         """The edge consensus NLPs of S lanes (scenarios) in one solve, in
         the ``edge_mode``'s form, warm-started at the previous consensus
         iterate: ``z_bar``, ``local_fullx``, ``lamb_bar [S, V, N-1, F]``,
-        ``pair_mask [S, P]``. Returns ``z_bar [S, V, N-1, F]`` and the
+        ``pair_mask [S, P]``; with ``branch_commit`` the frozen sides
+        ``d_bar [S, P, N-1, 2]``. Returns ``z_bar [S, V, N-1, F]`` and the
         solver's record."""
         s, v, t, f = z_bar.shape
+        opts = {}
+        if self.edge_prox:
+            opts["z_prev"] = z_bar              # the previous iterate
+        if self.branch_commit:
+            opts["d_bar"] = d_bar
         if self.edge_mode == "joint":
             pe = dict(lamb_bar=lamb_bar, local_fullx=local_fullx,
-                      rho=rho.expand(s), pair_mask=pair_mask)
+                      rho=rho.expand(s), pair_mask=pair_mask, **opts)
             esol = solve_nlp_batch(self._edge_nlp, z_bar.reshape(s, -1), pe,
                                    self.scfg)
             return esol.x.reshape(s, v, t, f), esol
@@ -1001,7 +1024,8 @@ class ConsensusObcaPlanner(_RecedingHorizon):
                   local_fullx=local_fullx.movedim(2, 1),
                   rho=rho.expand(s, t),
                   pair_mask=pair_mask[:, None].expand(
-                      (s, t) + pair_mask.shape[1:]))
+                      (s, t) + pair_mask.shape[1:]),
+                  **{k: a.movedim(2, 1) for k, a in opts.items()})
         z0 = z_bar.movedim(2, 1).reshape(s, t, v * f)
         if self.edge_mode == "staged":
             # one lane per scenario whose stages are the horizon steps
@@ -1046,9 +1070,20 @@ class ConsensusObcaPlanner(_RecedingHorizon):
         local_fullx = self._zip_z(bs.local_x, bs.lamb_ij)
         z_bar, esol = self._solve_edges(bs.z_bar[None], local_fullx[None],
                                         bs.lamb_bar[None], pair_mask[None],
-                                        rho)
+                                        rho, c["d_bar"][None])
         z_bar = z_bar[0]
         bs = bs._replace(z_bar=z_bar)
+        d_bar = c["d_bar"]
+        if self.branch_commit and it + 1 == self.commit_after:
+            # freeze the pass side (JAX obca.py:1231-1254): the lateral axis
+            # is the lower-index vehicle's heading normal, one side per pair
+            # from the horizon sum of the lateral gaps, an exact tie +1
+            th_i = z_bar[self.idx_i, :, 3]                     # [P, N-1]
+            lat = torch.stack([-torch.sin(th_i), torch.cos(th_i)], dim=-1)
+            d_now = z_bar[self.idx_i, :, :2] - z_bar[self.idx_j, :, :2]
+            side = torch.sum(torch.sum(d_now * lat, dim=-1), dim=-1)
+            sign = torch.where(side >= 0.0, 1.0, -1.0).to(self.dtype)
+            d_bar = sign[:, None, None] * lat
         if self.lamb_ij_mode == "track_edge":
             # neighbours plan against the (relaxed) consensus certificates
             th = self.lamb_ij_relax
@@ -1085,31 +1120,28 @@ class ConsensusObcaPlanner(_RecedingHorizon):
                               torch.mean(esol.converged.to(self.dtype))])
         nlp_kkt = torch.stack([torch.max(lsol.kkt_error),
                                torch.max(esol.kkt_error)])
-        tau_next = c["prox_tau"]
         if self.prox_adaptive:
             # grow tau where the primal residual rose
             tau_next = torch.clamp(torch.where(
-                primal > c["primal"], tau_next * self.prox_growth, tau_next),
-                max=self.prox_tau_max)
+                primal > c["primal"], c["prox_tau"] * self.prox_growth,
+                c["prox_tau"]), max=self.prox_tau_max)
+        else:
+            # the carry holds this iteration's weight, as JAX's does
+            tau_next = torch.tensor(prox_tau, dtype=self.dtype,
+                                    device=self.device)
         return dict(bs=bs, us_prev=us, lamb_prev=bs.lamb_bar, xs=xs,
                     loc_x=loc_x, nlp_ok=nlp_ok, nlp_kkt=nlp_kkt,
                     sum_err=dual_new.sum_err, diff_val=dual_new.diff_val,
                     done=done, primal=primal, dual=dual, gap=gap,
-                    primal_prev=c["primal"], prox_tau=tau_next)
+                    primal_prev=c["primal"], d_bar=d_bar, prox_tau=tau_next)
 
-    def _mpc_step(self, init_state, bar_state_prev: BarState, step_idx: int):
-        """One MPC step: the ADMM loop until both residuals are under their
-        thresholds or ``max_admm_iters`` is reached, then the MPC advance.
-
-        Returns ``(next_state [V, 5], shifted BarState, iterations (int),
-        primal, dual, converged_flag, nlp_ok [2], nlp_kkt [2], gap)``; every
-        tensor stays on the planner's device.
-        """
-        ocfg = self.ocfg
-        v, n = self.num_veh, ocfg.horizon
+    def _admm_start(self, bar_state_prev: BarState, step_idx: int):
+        """``(carry, ref_win, rho)`` at the start of one MPC step's ADMM
+        loop (the JAX ``_admm_parts``' ``c0``)."""
+        v, n = self.num_veh, self.ocfg.horizon
         ref_win = self._ref_window(step_idx)                   # [V, N, 5]
-        rho = torch.tensor(ocfg.rho, dtype=self.dtype, device=self.device)
         kw = dict(dtype=self.dtype, device=self.device)
+        rho = torch.tensor(self.ocfg.rho, **kw)
         inf = torch.tensor(math.inf, **kw)
         zeros_f = torch.zeros((v, n - 1, self.N_FULL), **kw)
         mask0 = self._pair_proximity_mask(bar_state_prev.local_x)[
@@ -1121,9 +1153,21 @@ class ConsensusObcaPlanner(_RecedingHorizon):
                  nlp_ok=torch.ones((2,), **kw),
                  nlp_kkt=torch.zeros((2,), **kw),
                  primal=inf, dual=inf, gap=inf, primal_prev=inf,
+                 d_bar=torch.zeros((len(self.idx_i), n - 1, 2), **kw),
                  prox_tau=torch.tensor(self.local_prox, **kw))
+        return c, ref_win, rho
+
+    def _mpc_step(self, init_state, bar_state_prev: BarState, step_idx: int):
+        """One MPC step: the ADMM loop until both residuals are under their
+        thresholds or ``max_admm_iters`` is reached, then the MPC advance.
+
+        Returns ``(next_state [V, 5], shifted BarState, iterations (int),
+        primal, dual, converged_flag, nlp_ok [2], nlp_kkt [2], gap)``; every
+        tensor stays on the planner's device.
+        """
+        c, ref_win, rho = self._admm_start(bar_state_prev, step_idx)
         it = 0
-        while it < ocfg.max_admm_iters:
+        while it < self.ocfg.max_admm_iters:
             c = self._admm_iteration(c, it, init_state, ref_win, rho)
             it += 1
             if bool(c["done"]):           # the one host read per iteration
@@ -1136,6 +1180,42 @@ class ConsensusObcaPlanner(_RecedingHorizon):
             bs = bs._replace(lamb_bar=self.lamb_bar_decay * bs.lamb_bar)
         return (next_state, self.shift_bar_state(bs), it, c["primal"],
                 c["dual"], converged_flag, c["nlp_ok"], c["nlp_kkt"], c["gap"])
+
+    def mpc_step_trace(self, init_state, bar_state_prev: BarState, step_idx,
+                       n_iters: int):
+        """Run EXACTLY ``n_iters`` ADMM iterations of one MPC step (no early
+        exit) and return the final carry (a dict, ``it`` included) and the
+        per-iteration history ``dict(primal, dual, gap, nlp_ok [n, 2],
+        nlp_kkt [n, 2], zy_gap, d_nrm)`` with a leading axis ``[n_iters]``:
+        the JAX ``mpc_step_trace``, the tool for watching the
+        conflict-window limit cycle. ``zy_gap`` is the mean lateral gap of
+        the two vehicles' consensus rows (0 for V != 2), ``d_nrm`` the mean
+        norm of the first vehicle of each pair's certificate image
+        ``A(z)^T lambda``."""
+        c, ref_win, rho = self._admm_start(bar_state_prev, step_idx)
+        keys = ("primal", "dual", "gap", "nlp_ok", "nlp_kkt", "zy_gap",
+                "d_nrm")
+        hist = {k: [] for k in keys}
+        for it in range(n_iters):
+            c = self._admm_iteration(c, it, init_state, ref_win, rho)
+            z = c["bs"].z_bar
+            a_e, _ = halfspaces(z[:, :, :5], self.vcfg,
+                                self.ocfg.use_delay_tightening)
+            at_le = torch.einsum('vtij,vkti->vktj', a_e, self._edge_lam(z))
+            d_now = at_le[self.idx_i, self._slot_i]
+            zy = z[:, :, 1]                              # consensus y
+            rec = dict(primal=c["primal"], dual=c["dual"], gap=c["gap"],
+                       nlp_ok=c["nlp_ok"], nlp_kkt=c["nlp_kkt"],
+                       zy_gap=(torch.mean(zy[0] - zy[1]) if self.num_veh == 2
+                               else torch.zeros((), dtype=self.dtype,
+                                                device=self.device)),
+                       d_nrm=torch.mean(torch.linalg.norm(d_now, dim=-1)))
+            for k in keys:
+                hist[k].append(rec[k])
+        c["it"] = torch.tensor(n_iters, dtype=torch.int32, device=self.device)
+        return c, {k: torch.stack(a) if a else torch.zeros(
+            (0,), dtype=self.dtype, device=self.device)
+            for k, a in hist.items()}
 
     def run_scan(self, n_steps: Optional[int] = None,
                  return_health: bool = False):

@@ -1,10 +1,11 @@
-"""Scenario-batched consensus-ADMM MPC step of the OBCA flagship.
+"""Scenario-batched consensus-ADMM MPC step of the OBCA flagship, on one
+device or with the vehicle axis partitioned over ranks.
 
-Port of ``dlp_admm_tpu/parallel/consensus_spmd.py`` on one device. The JAX
-module runs the step under ``shard_map`` over a ``(scenario, vehicle)``
-mesh; on a 1x1 mesh (``run_scenario_batch``, bench metric 3) it is one
-ADMM loop whose carry has a leading scenario axis S. That is what this
-module does on one CUDA card (or the CPU): every lane is one scenario,
+Port of ``dlp_admm_tpu/parallel/consensus_spmd.py``. The JAX module runs the
+step under ``shard_map`` over a ``(scenario, vehicle)`` mesh; on a 1x1 mesh
+(``run_scenario_batch``, bench metric 3) it is one ADMM loop whose carry has
+a leading scenario axis S. On one CUDA card (or the CPU) every lane is one
+scenario:
 
 * the local NLPs of all S·V (scenario, vehicle) pairs are ONE solve
   (staged: ``w0 [S·V, N-1, b]``, every KKT solve one block-Thomas launch
@@ -19,14 +20,34 @@ module does on one CUDA card (or the CPU): every lane is one scenario,
   vmapped ``while_loop`` does; the host reads "any lane active" once per
   ADMM iteration.
 
+With a mesh of ranks (:mod:`.mesh`) each rank holds its block ``[S_blk,
+vb]`` of the scenarios and vehicles, as JAX's shard does:
+
+* the initial states and every ``BarState`` leaf are gathered over the
+  vehicle group (the vehicles -> RSU message, one packed
+  ``dist.all_gather``) into the full-vehicle view, on which each
+  iteration's parameters are built with the planner's own methods and then
+  sliced to the block; the rank solves only its ``S_blk·vb`` local NLPs
+  (staged: K1 at ``(S_blk·vb, N-1, b)``);
+* every rank repeats the edge (RSU) solve for itself on the gathered
+  payload and keeps its block of the solution (no return traffic);
+* the residual and gap sums (JAX's ``psum``) gather the per-vehicle terms
+  and sum them over the full view in the one-device order, so every rank
+  of a vehicle group reads the same bits at its stop test and takes the
+  same number of ADMM iterations; ranks of other scenario blocks never
+  wait for each other.
+
+The collectives sit between solves, at the ADMM level, outside the staged
+solver's captured CUDA graphs. On one device the gathers and block slices
+are the identity, so the code is the same.
+
 Every per-iteration parameter is built with the planner's OWN methods
 (``_local_params``, ``_local_staged_params``, ``_local_warm_one``,
 ``_zip_z``, ``_edge_lam``, ``check_converge``) mapped over the lanes with
 ``torch.func.vmap``, and the solves go through the planner's
 ``_solve_locals`` / ``_solve_edges``, so a lane equals the same scenario run
 alone by construction (to rounding: the batch's reductions and library
-kernels may sum in another order). Partitioning the vehicle axis over
-several devices (the JAX module's ``all_gather`` / ``psum``) is not ported.
+kernels may sum in another order).
 """
 from __future__ import annotations
 
@@ -39,6 +60,7 @@ from torch.func import vmap
 from ..coordination.dual_update import DualState, update_dual
 from ..models.obca import BarState
 from ..ops.geometry import halfspaces
+from .mesh import all_gather_cat
 
 
 def run_scenario_batch(planner, init_states, n_steps: int):
@@ -65,19 +87,29 @@ def run_scenario_batch(planner, init_states, n_steps: int):
 def make_consensus_spmd_step(planner, mesh=None):
     """Build the scenario-batched MPC step of a ``ConsensusObcaPlanner``.
 
-    Returns ``step(init_states [S, V, 5], bar_state, step_idx)`` with
-    ``bar_state`` leaves carrying a leading scenario axis ``[S, V, ...]``;
-    outputs ``(next_state [S, V, 5], bar_state, iters [S], primal [S],
-    dual [S], converged [S], gap [S])`` on the planner's device. The block
-    solves it makes are added to ``planner.block_solves``.
+    Returns ``step(init_states, bar_state, step_idx)`` with ``bar_state``
+    leaves carrying a leading scenario axis ``[S, V, ...]``; outputs
+    ``(next_state [S, V, 5], bar_state, iters [S], primal [S], dual [S],
+    converged [S], gap [S])`` on the planner's device. The block solves it
+    makes are added to ``planner.block_solves``.
 
-    ``mesh`` must be None: the step runs on the planner's one device.
+    ``mesh`` (a :class:`~.mesh.PlannerMesh` with process groups) partitions
+    the vehicle axis: this rank passes and gets its own block
+    ``[S_blk, V / n_vehicle, ...]`` of every input and output (the
+    per-scenario outputs ``[S_blk]``), solves only that block's local
+    NLPs, and repeats the edge solve for itself on the gathered state, as
+    the JAX step does under ``shard_map``. ``mesh=None`` or a 1x1 mesh
+    without process groups is the one-device step.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the batched step runs on one device; partitioning the vehicle "
-            "axis over devices is not ported yet (ROADMAP.md queue 1, item "
-            "'parallel/mesh.py and parallel/multihost.py')")
+    for name, on in (("edge_prox", planner.edge_prox != 0.0),
+                     ("branch_commit", planner.branch_commit)):
+        if on:
+            # the JAX batch builds its edge parameters without z_prev or
+            # d_bar (its consensus_spmd.py:182-199), so it cannot run them
+            raise ValueError(
+                f"{name} is an option of ConsensusObcaPlanner's own step: "
+                f"the batched step builds no edge parameters for it, as in "
+                f"the JAX package")
     ocfg = planner.ocfg
     v, n = planner.num_veh, ocfg.horizon
     t, f_width = n - 1, planner.N_FULL
@@ -88,6 +120,12 @@ def make_consensus_spmd_step(planner, mesh=None):
     t_scale = (v / 2.0) if ocfg.thres_per_veh else 1.0
     taus = planner._prox_taus()                        # [max_admm_iters]
     pid, idx_i, idx_j = planner._pair_id, planner.idx_i, planner.idx_j
+    sharded = mesh is not None and mesh.distributed
+    ax_v = mesh.n_vehicle if sharded else 1
+    if v % ax_v:
+        raise ValueError(f"num_veh {v} must divide the vehicle axis {ax_v}")
+    vb = v // ax_v                        # vehicles of this rank's block
+    lo = mesh.vehicle_idx * vb if sharded else 0
 
     # the planner's parameter methods, one lane per scenario
     lane = (0, 0, None, None, 0)          # (bs, init, ref_win, rho, mask)
@@ -102,20 +140,40 @@ def make_consensus_spmd_step(planner, mesh=None):
     def flat(a):                          # [S, V, ...] -> [S·V, ...]
         return a.reshape((-1,) + a.shape[2:])
 
+    def gather(*blocks):
+        """Vehicle blocks ``[S, vb, ...]`` -> full ``[S, V, ...]``: the
+        vehicles -> RSU message (one packed all-gather over the vehicle
+        group); the identity on one device."""
+        if not sharded:
+            return blocks
+        return all_gather_cat(mesh, "vehicle", blocks, 1)
+
+    def gather_bs(bs):
+        return BarState(*gather(*bs))
+
+    def blk(tree):
+        """Full view ``[S, V, ...]`` -> this rank's vehicle block."""
+        if not sharded:
+            return tree
+        if isinstance(tree, dict):
+            return {k: a.narrow(1, lo, vb) for k, a in tree.items()}
+        return tree.narrow(1, lo, vb)
+
     def step(init_states, bar_state: BarState, step_idx: int):
         s = init_states.shape[0]
         ref_win = planner._ref_window(step_idx)                # [V, N, 5]
-        ref_b = ref_win.expand(s, v, n, 5)
-        init_flat = flat(init_states)
+        ref_b = ref_win[lo:lo + vb].expand(s, vb, n, 5)
+        init_full, = gather(init_states)
 
-        def masks(bs):
-            pair_mask = v_mask(bs.local_x)                     # [S, P]
+        def masks(bsf):
+            pair_mask = v_mask(bsf.local_x)                    # [S, P]
             return pair_mask, pair_mask[:, pid]                # [S, V, K]
 
         def body(c):
             bs = c["bs"]
             active = torch.logical_and(~c["done"], c["it"] < max_it)
-            pair_mask, mask_veh = masks(bs)
+            bsf = gather_bs(bs)           # the RSU's full-vehicle view
+            pair_mask, mask_veh = masks(bsf)
             if planner.prox_adaptive:
                 prox_tau = c["prox_tau"]
             else:
@@ -124,14 +182,15 @@ def make_consensus_spmd_step(planner, mesh=None):
             if planner.local_warm_mode == "previous":
                 x0 = c["loc_x"]
             else:
-                x0 = v_warm(ref_b, v_params(bs, init_states, ref_win, rho,
-                                            mask_veh))
-            p = v_lane_params(bs, init_states, ref_win, rho, mask_veh)
+                x0 = v_warm(ref_b, blk(v_params(bsf, init_full, ref_win, rho,
+                                                mask_veh)))
+            # the parameters built on the full view, sliced to the block
+            p = blk(v_lane_params(bsf, init_full, ref_win, rho, mask_veh))
             loc_flat, _ = planner._solve_locals(
-                flat(x0), flat(c["loc_x"]), init_flat,
+                flat(x0), flat(c["loc_x"]), flat(init_states),
                 {k: flat(a) for k, a in p.items()},
-                prox_tau.repeat_interleave(v))
-            loc_x = loc_flat.reshape(s, v, -1)
+                prox_tau.repeat_interleave(vb))
+            loc_x = loc_flat.reshape(s, vb, -1)
             xs, us, lam, _ = planner._loc_split(loc_x)
             # bar_state_update (ref optimizer.py:205-222)
             a_new, b_new = halfspaces(xs[:, :, 1:], planner.vcfg,
@@ -140,10 +199,14 @@ def make_consensus_spmd_step(planner, mesh=None):
                        else bs.lamb_ij)
             bs = bs._replace(a_mat=a_new, b=b_new, local_x=xs[:, :, 1:],
                              lamb_ij=lamb_ij)
-            local_fullx = v_zip(bs.local_x, bs.lamb_ij)        # [S, V, T, F]
-            z_bar, _ = planner._solve_edges(bs.z_bar, local_fullx,
-                                            bs.lamb_bar, pair_mask, rho)
-            bs = bs._replace(z_bar=z_bar)
+            # vehicles -> RSU: the fresh payload for the edge solve, which
+            # every rank repeats on the full view
+            locx_full, lij_full = gather(bs.local_x, bs.lamb_ij)
+            local_fullx = v_zip(locx_full, lij_full)           # [S, V, T, F]
+            z_full, _ = planner._solve_edges(bsf.z_bar, local_fullx,
+                                             bsf.lamb_bar, pair_mask, rho)
+            # RSU -> vehicles: the own block of the replicated solution
+            bs = bs._replace(z_bar=blk(z_full))
             if planner.lamb_ij_mode == "track_edge":
                 th = planner.lamb_ij_relax
                 if planner.lamb_ij_hysteresis:
@@ -152,13 +215,13 @@ def make_consensus_spmd_step(planner, mesh=None):
                     th = torch.where(c["primal"] > c["primal_prev"], 0.0,
                                      torch.full((s,), th, **kw))
                     th = th[:, None, None, None, None]
-                bs = bs._replace(lamb_ij=th * v_edge_lam(z_bar)
+                bs = bs._replace(lamb_ij=th * blk(v_edge_lam(z_full))
                                  + (1.0 - th) * bs.lamb_ij)
-            # dual ascent; each lane's own minimum distance
-            pos = bs.local_x[..., :2]
+            # dual ascent on the own block; each lane's own minimum distance
+            pos = locx_full[..., :2]
             d_min = torch.amin(torch.linalg.norm(
                 pos[:, idx_i] - pos[:, idx_j], dim=-1), dim=(1, 2))  # [S]
-            cons_err = local_fullx - z_bar
+            cons_err = blk(local_fullx) - bs.z_bar
             dual_new = update_dual(
                 DualState(dual=bs.lamb_bar, sum_err=c["sum_err"],
                           diff_val=c["diff_val"],
@@ -166,12 +229,16 @@ def make_consensus_spmd_step(planner, mesh=None):
                 cons_err, d_min[:, None, None, None], planner.dual_cfg,
                 lane_dims=1)
             bs = bs._replace(lamb_bar=dual_new.dual)
-            # residuals (ref driver :82-90) and the consensus gap, per lane;
-            # the dual delta normalized by the dual step size
-            primal = torch.abs(us - c["us_prev"]).sum(dim=(1, 2, 3))
-            dual = (torch.abs(bs.lamb_bar - c["lamb_prev"]).sum(dim=(1, 2, 3))
-                    / max(rho_dual, 1.0))
-            gap = torch.abs(cons_err).sum(dim=(1, 2, 3))
+            # residuals (ref driver :82-90) and the consensus gap, per lane,
+            # summed over the full vehicle view in the one-device order on
+            # every rank (so every rank takes the same stop decision); the
+            # dual delta normalized by the dual step size
+            pr_t, du_t, gap_t = gather(
+                torch.abs(us - c["us_prev"]),
+                torch.abs(bs.lamb_bar - c["lamb_prev"]), torch.abs(cons_err))
+            primal = pr_t.sum(dim=(1, 2, 3))
+            dual = du_t.sum(dim=(1, 2, 3)) / max(rho_dual, 1.0)
+            gap = gap_t.sum(dim=(1, 2, 3))
             lane_done = torch.logical_and(
                 primal <= ocfg.primal_thres * t_scale,
                 dual <= ocfg.dual_thres * t_scale)
@@ -195,14 +262,15 @@ def make_consensus_spmd_step(planner, mesh=None):
             out["bs"] = BarState(*map(sel, bs, c["bs"]))
             return out
 
-        _, mask_veh0 = masks(bar_state)
-        zeros_f = torch.zeros((s, v, t, f_width), **kw)
+        _, mask_veh0 = masks(gather_bs(bar_state))
+        zeros_f = torch.zeros((s, vb, t, f_width), **kw)
         inf = torch.full((s,), math.inf, **kw)
         c = dict(bs=bar_state,
-                 us_prev=torch.zeros((s, v, t, 2), **kw),
+                 us_prev=torch.zeros((s, vb, t, 2), **kw),
                  lamb_prev=bar_state.lamb_bar, xs=ref_b,
-                 loc_x=v_warm(ref_b, v_params(bar_state, init_states,
-                                              ref_win, rho, mask_veh0)),
+                 loc_x=v_warm(ref_b, blk(v_params(
+                     gather_bs(bar_state), init_full, ref_win, rho,
+                     mask_veh0))),
                  sum_err=zeros_f, diff_val=zeros_f,
                  it=torch.zeros((s,), dtype=torch.int32,
                                 device=planner.device),
@@ -210,12 +278,13 @@ def make_consensus_spmd_step(planner, mesh=None):
                                   device=planner.device),
                  primal=inf, primal_prev=inf, dual=inf, gap=inf,
                  prox_tau=torch.full((s,), planner.local_prox, **kw))
-        # one host read per ADMM iteration: is any lane still active
+        # one host read per ADMM iteration: is any lane still active (the
+        # same answer on every rank of a vehicle group)
         while bool(torch.logical_and(~c["done"], c["it"] < max_it).any()):
             c = body(c)
         # the convergence check on the final exchange state, BEFORE the
         # dual decay, then the MPC advance (driver :99-102)
-        conv = v_converged(c["bs"])
+        conv = v_converged(gather_bs(c["bs"]))
         bs_out = c["bs"]
         if planner.lamb_bar_decay != 1.0:
             bs_out = bs_out._replace(

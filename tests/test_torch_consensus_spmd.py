@@ -315,10 +315,21 @@ def test_batched_helpers_match_jax():
     assert want.tolist() == [True, False]
 
 
-def test_batched_step_runs_on_one_device_only():
-    tpl = TPlanner(device="cpu")
-    with pytest.raises(NotImplementedError, match="one device"):
-        t_make_step(tpl, mesh=object())
+def test_batched_step_runs_on_one_device_only(cases):
+    """Without process groups the mesh is 1x1 and the step is the
+    one-device step, bit for bit (the vehicle-sharded step over gloo ranks
+    is ``tests/test_torch_mesh.py``'s)."""
+    from dlp_admm_torch.parallel.mesh import planner_mesh
+    tpl, arr = _case(cases, "track_local_mode")
+    mesh = planner_mesh()
+    assert not mesh.distributed
+    got = t_make_step(tpl, mesh)(torch.as_tensor(arr["init"]),
+                                 bar_state_from_numpy(arr["bs"]), 0)
+    want = _port_step(tpl, arr["init"], arr["bs"])
+    for a, b in zip(got, want):
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
 
 
 # -- the committed JAX fixture of the bench's batch -------------------------

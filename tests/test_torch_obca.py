@@ -271,8 +271,16 @@ def test_reference_window_clamps_like_dynamic_slice(planners):
                          ids=lambda kw: "-".join(f"{k}={v}"
                                                  for k, v in kw.items()))
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPlanner(device="cpu", **kw)
+    """The planner takes both options (``tests/test_torch_obca_options.py``
+    holds its runs against JAX); the batched step, which JAX's batch cannot
+    run them in either, refuses them."""
+    tpl = TPlanner(device="cpu", **kw)
+    assert tpl.branch_commit == kw.get("branch_commit", False)
+    assert tpl.edge_prox == kw.get("edge_prox", 0.0)
+    from dlp_admm_torch.parallel.consensus_spmd import (
+        make_consensus_spmd_step)
+    with pytest.raises(ValueError, match="builds no edge parameters"):
+        make_consensus_spmd_step(tpl)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.int64])

@@ -107,7 +107,23 @@ on the CPU through ``ConsensusObcaPlanner.run_scan(return_health=True)``, all
   ``checkpoint_path``, the JAX ``save_carry`` file's leaves, leaf count,
   structure string and step kept as ``<case>__leaf_<i>``,
   ``__n_leaves``, ``__treedef``, ``__step``; saved as
-  ``tests/data/checkpoint_ref.npz`` (about a minute on the CPU).
+  ``tests/data/checkpoint_ref.npz`` (about a minute on the CPU);
+* ``mesh``: JAX's ``make_consensus_spmd_step`` with the vehicle axis
+  partitioned, on the meshes of ``MESH_CASES`` over the first devices of
+  the 8 CPU devices (``tests/conftest.py``'s): the cases of ``spmd`` on
+  1x2, 2x1 and 2x2 (keys ``<case>@<S>x<V>__out_<i>[_<leaf>]``), saved as
+  ``tests/data/consensus_spmd_mesh_ref.npz`` (about 4 minutes);
+* ``options``: the consensus planner's options (``OPTIONS``) at the
+  flagship's float64 profile with the ADMM cap cut to 6, one MPC step
+  each from the flagship run's
+  carry at step ``OPTIONS["step"]`` (``carry_state``, ``carry_bs_<leaf>``):
+  ``edge_prox``, ``branch_commit`` (with a small ``commit_after``) and
+  ``mpc_step_trace`` of a planner with both at a fixed ``n_iters``
+  (``<run>__out_<i>[_<leaf>]``; the trace's ``trace__xs``, ``__z_bar``,
+  ``__d_bar`` and ``__hist_<key>``), and per run ``<run>__chaotic``,
+  whether the same step from the carry's state moved by 1e-12 (two seeds)
+  leaves it by more than 1e-6 or takes other iteration counts, saved as
+  ``tests/data/obca_options_ref.npz`` (about 4 minutes).
 
 Each OBCA file holds
 
@@ -149,7 +165,8 @@ its iterations, their total and the minimum distance).
 
 Usage: python tools/make_torch_fixture.py
            [--profile f64|f32|v4|pi_admm|pi_admm_f32|batch|spmd|classic|
-                      centralized|centralized_v4|bilevel|aladin]
+                      centralized|centralized_v4|bilevel|aladin|checkpoint|
+                      mesh|options]
            [--steps N] [--out PATH] [--noise EPS --seed N]
 """
 import argparse
@@ -161,6 +178,11 @@ import time
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["JAX_ENABLE_X64"] = "1"
+# the 8 CPU devices of tests/conftest.py, which the mesh profile lays out
+_flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in _flags:
+    os.environ["XLA_FLAGS"] = (
+        _flags + " --xla_force_host_platform_device_count=8").strip()
 
 import jax  # noqa: E402
 
@@ -245,6 +267,26 @@ SPMD_CASES = {
 }
 SPMD_CARRIED = "two_vehicle_reference_problem"
 
+# the vehicle-sharded step of the spmd cases on (scenario, vehicle) meshes
+MESH_CASES = (("two_vehicle_reference_problem", 1, 2),
+              ("two_vehicle_reference_problem", 2, 1),
+              ("two_vehicle_reference_problem", 2, 2),
+              ("four_vehicle_blocks_with_gating", 1, 2),
+              ("track_local_mode", 1, 2),
+              ("staged_default_mode", 1, 2),
+              ("annealed_prox_profile", 1, 2))
+
+# the consensus planner's options, one flagship float64 step each (its ADMM
+# cap cut to 6) from the flagship run's carry at a step inside the
+# conflict window
+OPTIONS = dict(step=11, ocfg=dict(max_admm_iters=6), chaos_noise=1e-12,
+               chaos_seeds=(1, 2), chaos_tol=1e-6, trace_iters=6,
+               runs=dict(edge_prox=dict(edge_prox=1.0),
+                         branch_commit=dict(branch_commit=True,
+                                            commit_after=3),
+                         trace=dict(edge_prox=1.0, branch_commit=True,
+                                    commit_after=3)))
+
 # the classic PI-ADMM layout: run_pi_admm()'s defaults, the A/Bs of
 # tests/test_pi_vs_plain.py and the joint edge QP cases of
 # tests/test_pi_admm.py::TestJointEdgeQp (its solver budget)
@@ -326,6 +368,11 @@ def default_out(name):
     if name == "spmd":
         return os.path.join(ROOT, "tests", "data",
                             "consensus_spmd_cases_ref.npz")
+    if name == "mesh":
+        return os.path.join(ROOT, "tests", "data",
+                            "consensus_spmd_mesh_ref.npz")
+    if name == "options":
+        return os.path.join(ROOT, "tests", "data", "obca_options_ref.npz")
     if name == "classic":
         return os.path.join(ROOT, "tests", "data", "pi_admm_classic_ref.npz")
     if name in ("bilevel", "aladin", "checkpoint"):
@@ -545,6 +592,93 @@ def write_spmd(out, commit):
     np.savez_compressed(out, **arrays, profile=np.asarray(json.dumps(
         SPMD_CASES, sort_keys=True)), commit=np.asarray(commit))
     print(json.dumps(dict(out=os.path.relpath(out, ROOT), profile="spmd",
+                          seconds=round(time.perf_counter() - t0, 1),
+                          commit=commit)))
+
+
+def write_mesh(out, commit):
+    from dlp_admm_tpu.parallel.consensus_spmd import make_consensus_spmd_step
+    from dlp_admm_tpu.parallel.mesh import planner_mesh
+    t0 = time.perf_counter()
+    arrays = {}
+    for name, n_s, n_v in MESH_CASES:
+        pl, init, bs = spmd_case(name)
+        step = make_consensus_spmd_step(pl, planner_mesh(n_s, n_v))
+        res, flat = spmd_outputs(step, init, bs, 0)
+        arrays.update({f"{name}@{n_s}x{n_v}__{k}": x
+                       for k, x in flat.items()})
+        print(json.dumps(dict(case=name, mesh=[n_s, n_v],
+                              iterations=np.asarray(res[2]).tolist())),
+              flush=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(out, **arrays, profile=np.asarray(json.dumps(
+        MESH_CASES)), commit=np.asarray(commit))
+    print(json.dumps(dict(out=os.path.relpath(out, ROOT), profile="mesh",
+                          seconds=round(time.perf_counter() - t0, 1),
+                          commit=commit)))
+
+
+def options_carry():
+    """The flagship float64 run's ``(state [V, 5], BarState)`` carry at
+    ``OPTIONS["step"]``, step by step through ``_mpc_step_impl``."""
+    pl = make_planner("f64")
+    step = jax.jit(pl._mpc_step_impl)
+    st = jax.numpy.asarray(pl.refs[:, 0, :])
+    bs = pl.create_bar_state()
+    for k in range(OPTIONS["step"]):
+        st, bs = step(st, bs, jax.numpy.asarray(k, "int32"))[:2]
+    return np.asarray(st), bs
+
+
+def options_run(name, state, bs):
+    """One run of ``OPTIONS["runs"][name]`` from ``(state, bs)`` at the
+    carry's step: ``(flat outputs, states to compare, iterations)``."""
+    o = OPTIONS
+    prof = PROFILES["f64"]
+    pl = ConsensusObcaPlanner(ObcaConfig(**{**prof["ocfg"], **o["ocfg"]}),
+                              scfg=SolverConfig(**prof["scfg"]),
+                              **prof["planner"], **o["runs"][name])
+    k = jax.numpy.asarray(o["step"], "int32")
+    if name == "trace":
+        c, hist = pl.mpc_step_trace(jax.numpy.asarray(state), bs, k,
+                                    o["trace_iters"])
+        flat = {"trace__xs": np.asarray(c["xs"]),
+                "trace__z_bar": np.asarray(c["bs"].z_bar),
+                "trace__d_bar": np.asarray(c["d_bar"])}
+        flat.update({f"trace__hist_{h}": np.asarray(x)
+                     for h, x in hist.items()})
+        return flat, flat["trace__xs"], o["trace_iters"]
+    out = jax.jit(pl._mpc_step_impl)(jax.numpy.asarray(state), bs, k)
+    flat = {f"{name}__out_1_{f}": np.asarray(x)
+            for f, x in out[1]._asdict().items()}
+    flat.update({f"{name}__out_{i}": np.asarray(x) for i, x in
+                 enumerate(out) if i != 1})
+    return flat, flat[f"{name}__out_0"], int(out[2])
+
+
+def write_options(out, commit):
+    o = OPTIONS
+    t0 = time.perf_counter()
+    state, bs = options_carry()
+    arrays = dict(carry_state=state, **{f"carry_bs_{f}": np.asarray(x)
+                                        for f, x in bs._asdict().items()})
+    for name in o["runs"]:
+        flat, states, its = options_run(name, state, bs)
+        chaotic = False
+        for sd in o["chaos_seeds"]:
+            moved = state + o["chaos_noise"] * np.random.default_rng(
+                sd).normal(size=state.shape)
+            _, m_states, m_its = options_run(name, moved, bs)
+            chaotic |= bool(m_its != its or np.abs(
+                m_states - states).max() > o["chaos_tol"])
+        arrays.update(flat, **{f"{name}__chaotic": np.asarray(chaotic)})
+        print(json.dumps(dict(run=name, iterations=its, chaotic=chaotic)),
+              flush=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(out, **arrays, profile=np.asarray(json.dumps(
+        dict(o, planner=PROFILES["f64"]), sort_keys=True)),
+        commit=np.asarray(commit))
+    print(json.dumps(dict(out=os.path.relpath(out, ROOT), profile="options",
                           seconds=round(time.perf_counter() - t0, 1),
                           commit=commit)))
 
@@ -1110,7 +1244,7 @@ def main():
     ap.add_argument("--profile", choices=sorted(PROFILES) + sorted(
         PI_ADMM_LANES) + ["batch", "spmd", "classic", "centralized",
                           "centralized_v4", "bilevel", "aladin",
-                          "checkpoint"],
+                          "checkpoint", "mesh", "options"],
                     default="f64")
     ap.add_argument("--steps", type=int, default=None,
                     help="MPC steps (default: the whole 42-step run)")
@@ -1145,6 +1279,10 @@ def main():
         return write_aladin(args.out, commit, args.noise, args.seed)
     if args.profile == "checkpoint":
         return write_checkpoint(args.out, commit)
+    if args.profile == "mesh":
+        return write_mesh(args.out, commit)
+    if args.profile == "options":
+        return write_options(args.out, commit)
     if args.profile in PI_ADMM_LANES:
         return write_pi_admm(args.profile, args.out, commit, args.noise,
                              args.seed)

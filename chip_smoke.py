@@ -7,33 +7,41 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    ``warp``, one warp per system for B <= 32, ``wide``, one block per
    system up to its width classes, ``cluster``, a thread-block cluster per
    system past them as far as the cluster holds the tile on chip, and
-   ``big``, one block per system past that, each built once per element
-   type) for ``sm_90a``, one ``nvcc`` per library, side by side; prints the
-   build time and what ``ptxas`` says, and fails if the warp kernel at the
-   flagship's width bound, a wide-kernel build that a driven path launches,
-   a cluster-kernel or a big-kernel build spills registers (the other wide
-   builds' spills are printed); prints how many clusters of the cluster
-   kernel's plans the card runs at once;
+   ``big``, a grid of co-resident CTAs per system past that, each built
+   once per element type) for ``sm_90a``, one ``nvcc`` per library, side by
+   side; prints the build time and what ``ptxas`` says, and fails if the
+   warp kernel at the flagship's width bound, a wide-kernel build that a
+   driven path launches, a cluster-kernel or a big-kernel build spills
+   registers (the other wide builds' spills are printed); prints how many
+   clusters of the cluster kernel's plans, and how many CTAs of the big
+   kernel's, the card runs at once;
 3. kernel vs plain version on the card, float64 and float32, plain and
    equilibrated, at (S, T, B) = (2, 7, 19), (1, 7, 20), (32, 7, 19),
    (256, 7, 19) (warp kernel, and the wide kernel forced onto the same
    shapes), (4, 7, 33), (4, 7, 43), (2, 7, 61), (1, 7, 80), (2, 7, 80),
    (1, 7, 97) (wide kernel; float64 equilibrated past 80 goes to the
-   cluster kernel), (16, 7, 20) and, at the recursion length T = 14 of the
+   cluster kernel), (16, 7, 20), (16, 7, 19) and, at the recursion length
+   T = 14 of the
    centralized planner, (1, 14, 22), (1, 14, 34), (1, 14, 45), (1, 14, 66),
    (1, 14, 76), and (1, 14, 108) (the 4-vehicle centralized width),
    (2, 7, 264) (synthetic) and (1, 7, 320) (the 8-vehicle consensus edge
    width), which the cluster kernel solves, with the big kernel forced
-   onto the same calls beside it (timed beside it at 108 only), on
-   diagonally dominant, KKT-style saddle, zero-leading-block saddle and
-   (equilibrated only) badly scaled systems made with numpy from a fixed
-   seed (tolerances below);
-   at each shape a path gives K1 (``PATH_SHAPES``), the device time of both
-   kernels in turns, of the plain version and of one ``torch.linalg.solve``
+   onto the same calls beside it (timed beside it at 108, 264 and 320),
+   and
+   (1, 7, 405) in float64 (the 9-vehicle consensus edge width) and
+   (1, 7, 605) in float32 equilibrated (the 11-vehicle one), which the big
+   kernel solves, on diagonally dominant,
+   KKT-style saddle, zero-leading-block saddle and (equilibrated only)
+   badly scaled systems made with numpy from a fixed seed (tolerances
+   below); one big-kernel solve at (1, 7, 405) captured in a CUDA graph
+   and replayed three times gives the eager call's bits each time;
+   at each shape a path gives K1 (``PATH_SHAPES``, and (1, 7, 605) float32
+   equilibrated and (2, 7, 264)), the device time of both kernels in
+   turns, of the plain version and of one ``torch.linalg.solve``
    on the assembled dense matrix (a yardstick the port never calls),
    beside the roofline bound; the cluster kernel also forced at
    (1, 14, 66) and (1, 7, 80), and its clock64() split at (1, 14, 108) and
-   (2, 7, 264);
+   (2, 7, 264), the big kernel's at (1, 7, 405) and (1, 7, 605);
 4. the float64 slice: ``dlp_admm_torch.mpc.run_obca(Formulation.CONSENSUS)``
    on the card with the flagship's float64 profile, first 6 MPC steps, held
    against the committed JAX run ``tests/data/consensus_obca_f64_ref.npz``
@@ -122,8 +130,16 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    ``tests/test_obca.py:18-27``'s tracking gates; one consensus MPC step
    of 8 vehicles (``tools/exp_obca_batch.py v8``'s planner settings,
    float64, ADMM cap 2), K1 at (8, 7, 61) (wide) and (1, 7, 320) (cluster),
-   on the kernels and on their plain version: states within 1e-9, equal
-   ADMM iterations and IP trips, launches equal to block solves;
+   and the same step of 9 vehicles, K1 at (9, 7, 68) (wide) and
+   (1, 7, 405) (big), each on the kernels and on their plain version:
+   states within 1e-9 (at 9 vehicles, where every IP solve stops at its
+   40-trip cap, within the fixed 1e-5; the plain version's own run, its
+   z_bar moved by 1e-12, printed beside), equal ADMM iterations and IP
+   trips, launches equal to block solves; the 9-vehicle step also against
+   the committed JAX run
+   ``tests/data/consensus_obca_v9_f64_ref.npz`` (states within 1e-6, equal
+   ADMM iterations, unless JAX, its ``z_bar`` moved by 1e-12, leaves
+   itself there: then the distance is printed, not gated);
 12. the classic PI-ADMM layout, ``run_pi_admm()`` with its defaults (2
    vehicles crossing, horizon 5, float64), its first 12 steps (JAX's own
    chaotic step is 22; ``--full`` all 45) held against
@@ -251,10 +267,12 @@ FIXTURE_CLASSIC = os.path.join(DATA, "pi_admm_classic_ref.npz")
 FIXTURE_BILEVEL = os.path.join(DATA, "bilevel_ref.npz")
 FIXTURE_ALADIN = os.path.join(DATA, "aladin_ref.npz")
 FIXTURE_OPTIONS = os.path.join(DATA, "obca_options_ref.npz")
+FIXTURE_V9 = os.path.join(DATA, "consensus_obca_v9_f64_ref.npz")
 RANK_SCRIPT = os.path.join(ROOT, "tools", "multihost_smoke_torch.py")
 SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (256, 7, 19))   # B <= 32
-# the batched driver's edge solves (its locals are (32, 7, 19) above)
-BATCH_SHAPES = ((16, 7, 20),)
+# the batched driver's edge solves (its locals are (32, 7, 19) above), and a
+# rank's locals on phase 16's 1x2 mesh
+BATCH_SHAPES = ((16, 7, 20), (16, 7, 19))
 # B > 32: the 4-vehicle local and edge widths 33 and 80, the 3-vehicle edge
 # width 45 (at 43), the 8-vehicle local width 61, and 97, the float64 bound
 # (float64 equilibrated, 80 is the bound and a width the earlier wide
@@ -271,15 +289,30 @@ T14_SHAPES = ((1, 14, 22), (1, 14, 34), (1, 14, 45), (1, 14, 66),
 # past the wide kernel's classes, where the cluster kernel runs (the big
 # kernel forced beside it): the 4-vehicle centralized KKT width (past the
 # wide kernel's float64 range, 97, and its float32 equilibrated range, 106),
-# a synthetic 264 and the 8-vehicle consensus edge width, 5V + 10 V(V-1)/2
-BIG_SHAPES = ((1, 14, 108), (2, 7, 264), (1, 7, 320))
+# a synthetic 264 and the 8-vehicle consensus edge width, 5V + 10 V(V-1)/2;
+# past the cluster's reach, where the big kernel runs: the 9-vehicle edge
+# width in float64 and the 11-vehicle one in float32 equilibrated (the
+# staged solver's variant of each type; PAST_REACH)
+BIG_SHAPES = ((1, 14, 108), (2, 7, 264), (1, 7, 320), (1, 7, 405),
+              (1, 7, 605))
+PAST_REACH = {(1, 7, 405): (torch.float64, (False, True)),
+              (1, 7, 605): (torch.float32, (True,))}
 # the wide kernel's path shapes, where the cluster kernel is also timed
 # (printed, not gated)
 CLUSTER_FORCED_SHAPES = ((1, 14, 66), (1, 7, 80))
-# one consensus MPC step of 8 vehicles: tools/exp_obca_batch.py v8's planner
-# settings in float64 (the staged edge, ADMM cap 2); its solves on the
-# kernels and on the plain version part only at the rounding level
+# one consensus MPC step of 8 and of 9 vehicles: tools/exp_obca_batch.py
+# v8's planner settings in float64 (the staged edge, ADMM cap 2); its solves
+# on the kernels and on the plain version part only at the rounding level.
+# At 8 vehicles the step keeps that: states within 1e-9. At 9 every IP solve
+# stops at its 40-trip cap, unconverged, and the step amplifies rounding:
+# JAX's own step, its z_bar moved by 1e-12 (MOVE_NOISE), parts from itself
+# by 0.018 (the fixture's moved_state_err), and on an H100 the kernels' run
+# parts from the plain version's by 3.14e-6. Its gate is fixed at 1e-5,
+# and the plain version's own moved run is printed beside it (PERF.md);
+# phase 7 holds each of the step's KKT blocks to the plain version
 V8_STATE_TOL = 1e-9
+V9_STATE_TOL = 1e-5
+MOVE_NOISE, MOVE_SEED = 1e-12, 1
 KINDS = ("diag_dominant", "kkt_saddle", "zero_lead")
 EQ_KINDS = KINDS + ("badly_scaled",)
 # (kind, equilibrate): the badly scaled kind is what equilibration is for;
@@ -343,15 +376,21 @@ BATCH_SMOKE_STEPS = 2
 # the shapes phase 3 times (in the staged solver's variant of each type):
 # the ones a driven path gives K1; the synthetic ones are held to the plain
 # version untimed (their rows in PERF.md are earlier PRs')
-PATH_SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (16, 7, 20), (4, 7, 33),
+PATH_SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (16, 7, 20), (16, 7, 19),
+               (4, 7, 33),
                (1, 7, 80), (1, 14, 34), (1, 14, 66), (1, 14, 108),
-               (1, 7, 320))
+               (1, 7, 320), (1, 7, 405))
+# ... and the 11-vehicle edge width, which no driven path gives K1, timed
+# for the big kernel's row in float32 equilibrated, and the synthetic 264,
+# where the cluster kernel is timed beside the big kernel
+TIMED_SYNTH_SHAPES = ((1, 7, 605), (2, 7, 264))
 # the run blocks phase 7 times: those of the kernels line and the batch's
 TIMED_RUN_BLOCKS = (("slice float64", (2, 7, 19)),
                     ("multi-vehicle V=4 float64", (1, 7, 80)),
                     ("centralized float64", (1, 14, 34)),
                     ("centralized V=4 float64", (1, 14, 108)),
                     ("consensus V=8 float64", (1, 7, 320)),
+                    ("consensus V=9 float64", (1, 7, 405)),
                     ("batch float64", (32, 7, 19)),
                     ("batch float64", (16, 7, 20)))
 # the default run's depth on the centralized planner (35 steps before
@@ -583,21 +622,20 @@ def timings(thomas, diag, upper, rhs, equilibrate, other=None):
         return lambda: thomas.launch_kernel(diag, upper, rhs, equilibrate,
                                             kernel)
 
-    def reps(kernel):       # a big-kernel call takes tens of milliseconds
-        return 2 if kernel == "big" else 20
+    # a call past 264 wide takes milliseconds: fewer calls a graph
+    reps = 20 if b < 264 else 5
 
     name = thomas.kernel_plan(s, t, b, rhs.dtype, equilibrate)["kernel"]
     if other is None:
         other = {"warp": "wide", "cluster": "big"}.get(name)
     row = {}
     if other:
-        turns = [graph_ms(run(k), reps(k))
-                 for k in (name, other, other, name)]
+        turns = [graph_ms(run(k), reps) for k in (name, other, other, name)]
         row.update({"ms": 0.5 * (turns[0] + turns[3]),
                     f"{other}_ms": 0.5 * (turns[1] + turns[2]),
                     "ms_turns": turns})
     else:
-        row.update(ms=graph_ms(run(name), reps(name)))
+        row.update(ms=graph_ms(run(name), reps))
     row["us_per_pivot"] = 1e3 * row["ms"] / (t * b)
     # past the wide classes one plain call is tens of thousands of kernels:
     # a graph of one call, replayed, instead of five
@@ -723,12 +761,14 @@ def report_build(logs, wide_builds, main_path_plans):
                      nt=int(m.group(4)), max_warps=int(m.group(5)),
                      equilibrated=m.group(6) == "1",
                      profiling=m.group(7) == "1")
-        # <EQ>, the element type in the parameter list
-        m = re.search(r"thomas_big_kernelILb([01])EEEvPK([df])",
-                      r["function"])
+        # <EQ, TILE, PROF>, the element type in Params<T>
+        m = re.search(r"thomas_big_kernelILb([01])ELb([01])ELb([01])E\S*?"
+                      r"ParamsI([df])E", r["function"])
         if m:
-            r.update(dtype="f64" if m.group(2) == "d" else "f32",
-                     equilibrated=m.group(1) == "1", big=True)
+            r.update(dtype="f64" if m.group(4) == "d" else "f32",
+                     equilibrated=m.group(1) == "1",
+                     tile_in_smem=m.group(2) == "1",
+                     profiling=m.group(3) == "1", big=True)
         # <EQ, PROF>, the element type in Params<T>
         m = re.search(r"thomas_cluster_kernelILb([01])ELb([01])E\S*?"
                       r"ParamsI([df])E", r["function"])
@@ -757,9 +797,11 @@ def report_build(logs, wide_builds, main_path_plans):
         (r["dtype"], r["equilibrated"], r["ncl"], r["rpw"], r["nt"])
         == (dt, eq, p["ncl"], p["rpw"], p["nt"])
         for dt, eq, p in main_path_plans)]
+    # per type: plain and equilibrated, the blocks in shared memory or in
+    # the workspace, and the profiling builds (shared memory)
     big = [r for r in rows if r.get("big")]
-    if len(big) != 4:
-        raise RuntimeError(f"expected 4 big-kernel builds in the compiler's "
+    if len(big) != 12:
+        raise RuntimeError(f"expected 12 big-kernel builds in the compiler's "
                            f"output, found {len(big)}")
     cluster = [r for r in rows if r.get("cluster")]
     if len(cluster) != 8:
@@ -1047,6 +1089,23 @@ def smoke(args, records):
                 if n < 1:
                     raise RuntimeError(f"the card runs no cluster of the plan "
                                        f"{plan}")
+        # CTAs of the big kernel's plans the card holds at once (every CTA
+        # of a launch must be: a group's CTAs wait on each other's flags)
+        occ = records["big_occupancy"] = []
+        for b, dt, eq in ((405, torch.float64, False),
+                          (605, torch.float32, True)):
+            n = thomas.big_co_resident(b, dt, eq)
+            plan = thomas.kernel_plan(1, 7, b, dt, eq, co_resident=n)
+            row = dict(b=b, dtype=str(dt)[6:], equilibrated=eq,
+                       ctas=plan["ctas"], prefetch=plan["prefetch"],
+                       tile_in_smem=plan["tile_in_smem"],
+                       smem_bytes=plan["smem_bytes"], co_resident_ctas=n,
+                       systems_at_once=n // plan["ctas"])
+            log("  " + json.dumps(row))
+            occ.append(row)
+            if n < plan["ctas"]:
+                raise RuntimeError(f"the card cannot hold the CTAs of the "
+                                   f"plan {plan} at once")
 
     # -- 3. kernel vs plain version -------------------------------------
     with phase(records, "3 kernels vs plain"):
@@ -1056,6 +1115,10 @@ def smoke(args, records):
             for s, t, b in (SHAPES + WIDE_SHAPES + BATCH_SHAPES + T14_SHAPES
                             + BIG_SHAPES):
                 for kind_, eq in VARIANTS:
+                    if (s, t, b) in PAST_REACH and (
+                            dtype != PAST_REACH[s, t, b][0]
+                            or eq not in PAST_REACH[s, t, b][1]):
+                        continue
                     d, u, r = (torch.as_tensor(a, dtype=dtype, device=dev)
                                for a in make_system(rng, s, t, b, kind_))
                     label = (f"{kind_} S={s} T={t} B={b} {str(dtype)[6:]}"
@@ -1065,11 +1128,11 @@ def smoke(args, records):
                     # variants until phases 16-17 joined the run)
                     timed = (kind_ == "diag_dominant"
                              and eq == (dtype != torch.float64)
-                             and (s, t, b) in PATH_SHAPES)
-                    # the big kernel is timed beside the cluster kernel at
-                    # the path width 108 only (no path launches it; its
-                    # 264 and 320 times are the earlier runs' in PERF.md)
-                    other = False if b in (264, 320) else None
+                             and (s, t, b) in PATH_SHAPES
+                             + TIMED_SYNTH_SHAPES)
+                    # the big kernel is timed beside the cluster kernel
+                    # where that is timed (108, 320) and at 264
+                    other = None
                     want = thomas.block_thomas_plain(d, u, r, eq)
                     synth.append(compare(thomas, d, u, r, label, eq,
                                          timed=timed, other=other,
@@ -1077,7 +1140,7 @@ def smoke(args, records):
                     if b <= thomas.WARP_MAX_B:
                         synth.append(compare(thomas, d, u, r, label, eq,
                                              kernel="wide", want=want))
-                    if (s, t, b) in BIG_SHAPES:
+                    if (s, t, b) in BIG_SHAPES and b <= 384:
                         synth.append(compare(thomas, d, u, r, label, eq,
                                              kernel="big", want=want))
             # the cluster kernel at the wide kernel's path shapes, in the variant
@@ -1092,6 +1155,7 @@ def smoke(args, records):
                     f"{str(dtype)[6:]}{' equilibrated' if eq else ''}", eq,
                     kernel="cluster"))
         records["cluster_clock_split"] = cluster_split(thomas, rng, dev)
+        records["big_graph_replay"] = big_graph_replay(thomas, rng, dev)
 
     # -- 4, 5. the slices -----------------------------------------------
     with phase(records, "4-5 slices"):
@@ -1222,7 +1286,8 @@ def smoke(args, records):
         kernel_entry("cluster", real, paths, "centralized V=4 float64",
                      (1, 14, 108), at_shapes=(
                          ("consensus V=8 float64", (1, 7, 320)),)),
-        big_entry(synth, paths)]}
+        kernel_entry("big", real, paths, "consensus V=9 float64",
+                     (1, 7, 405))]}
     wall = time.perf_counter() - t_start
     records.update(kernels, paths=paths, device=kind, nvidia_smi=smi,
                    wall_s=wall)
@@ -1931,35 +1996,65 @@ def centralized_path(thomas, ip_staged, paths, systems, smi):
         raise RuntimeError(f"{name} fails the tracking gates: {gates}")
     out["float32"] = row
 
-    # -- 11.5 one consensus step of 8 vehicles (the 320-wide edge) --------
-    out["consensus V=8"] = v8_step(thomas, ip_staged, paths, systems, smi)
+    # -- 11.5 one consensus step of 8 vehicles (the 320-wide edge) and of
+    # 9 (the 405-wide edge, past the cluster's reach) ---------------------
+    out["consensus V=8"] = consensus_step(thomas, ip_staged, paths, systems,
+                                          smi, 8, "cluster", V8_STATE_TOL)
+    out["consensus V=9"] = consensus_step(thomas, ip_staged, paths, systems,
+                                          smi, 9, "big", V9_STATE_TOL,
+                                          np.load(FIXTURE_V9))
     return out
 
 
-def v8_step(thomas, ip_staged, paths, systems, smi):
-    """One consensus MPC step of 8 vehicles with ``tools/exp_obca_batch.py
-    v8``'s planner settings (horizon 8, ``min_dis`` 0.1, rho 100, prox 700
-    x 1.5, ``ip_iters`` 40, ``ip_tol`` 1e-4) in float64, the staged edge,
-    ADMM cap 2: its locals solve at (8, 7, 61) and its edge at (1, 7, 320).
-    On the kernels and on their plain version, on the card: states within
-    V8_STATE_TOL, equal ADMM iterations and IP trips, launches equal to
-    block solves, the cluster kernel launched."""
+def consensus_step(thomas, ip_staged, paths, systems, smi, num_veh, kernel,
+                   state_tol, ref=None):
+    """One consensus MPC step of ``num_veh`` vehicles with
+    ``tools/exp_obca_batch.py v8``'s planner settings (horizon 8, ``min_dis``
+    0.1, rho 100, prox 700 x 1.5, ``ip_iters`` 40, ``ip_tol`` 1e-4) in
+    float64, the staged edge, ADMM cap 2: at 8 vehicles its locals solve at
+    (8, 7, 61) and its edge at (1, 7, 320), at 9 at (9, 7, 68) and
+    (1, 7, 405). On the kernels and on their plain version, on the card:
+    states within ``state_tol``, equal ADMM iterations and IP trips,
+    launches equal to block solves, ``kernel`` launched. ``ref``: the JAX
+    run of the same step, held to STATE_TOL and equal ADMM iterations
+    unless JAX, its start moved by 1e-12, leaves itself (``chaotic``),
+    where the distance is printed; with it the plain version's run, its
+    ``z_bar`` moved by MOVE_NOISE as JAX's was, is printed beside JAX's
+    moved run."""
     from dlp_admm_torch.config import Formulation, ObcaConfig, SolverConfig
     from dlp_admm_torch.models import obca
     from dlp_admm_torch.mpc import run_obca
-    name = "consensus V=8 float64"
+    name = f"consensus V={num_veh} float64"
 
     def run():
         return run_obca(
             Formulation.CONSENSUS,
-            ocfg=ObcaConfig(num_veh=8, horizon=8, min_dis=0.1, rho=100.0,
-                            max_admm_iters=2),
+            ocfg=ObcaConfig(num_veh=num_veh, horizon=8, min_dis=0.1,
+                            rho=100.0, max_admm_iters=2),
             scfg=SolverConfig(ip_iters=40, ip_tol=1e-4), n_steps=1,
             dtype=torch.float64, local_prox=700.0, prox_growth=1.5,
             prox_tau_max=1.0e9)
 
     def plain(diag, upper, rhs):
         return thomas.block_thomas_plain(diag, upper, rhs, False)
+
+    @contextlib.contextmanager
+    def moved():
+        """The planner's first z_bar moved by MOVE_NOISE (numpy's normal
+        draws from MOVE_SEED, as the JAX fixture's moved run)."""
+        keep = obca.ConsensusObcaPlanner.create_bar_state
+
+        def create_bar_state(self):
+            bs = keep(self)
+            eps = MOVE_NOISE * np.random.default_rng(MOVE_SEED).normal(
+                size=tuple(bs.z_bar.shape))
+            return bs._replace(z_bar=bs.z_bar + torch.as_tensor(
+                eps, dtype=bs.z_bar.dtype, device=bs.z_bar.device))
+        obca.ConsensusObcaPlanner.create_bar_state = create_bar_state
+        try:
+            yield
+        finally:
+            obca.ConsensusObcaPlanner.create_bar_state = keep
 
     def counted(solve=None):
         """drive() with every staged solve's IP trips recorded, and the
@@ -1982,11 +2077,12 @@ def v8_step(thomas, ip_staged, paths, systems, smi):
 
     res, counts, kkt, trips, wall = counted()
     pl = res.extras["planner"]
-    check_counts(name, counts, pl.block_solves, ("cluster",))
+    check_counts(name, counts, pl.block_solves, (kernel,))
     want, plain_counts, _, plain_trips, plain_wall = counted(plain)
     if sum(plain_counts.values()):
         raise RuntimeError(f"{name}: the plain run launched {plain_counts}")
-    if res.states.shape != (2, 8, 5) or not np.all(np.isfinite(res.states)):
+    if res.states.shape != (2, num_veh, 5) or not np.all(
+            np.isfinite(res.states)):
         raise RuntimeError(f"{name}: states {res.states.shape} not finite")
     err = float(np.abs(res.states - want.states).max())
     systems[name] = kkt
@@ -1997,13 +2093,37 @@ def v8_step(thomas, ip_staged, paths, systems, smi):
                iterations=res.metrics.iter_history,
                plain_iterations=want.metrics.iter_history, ip_trips=trips,
                plain_ip_trips=plain_trips, max_state_err_vs_plain=err,
-               wall_s=wall, plain_wall_s=plain_wall, nvidia_smi=smi)
+               state_tol=state_tol, wall_s=wall, plain_wall_s=plain_wall,
+               nvidia_smi=smi)
+    if ref is not None:
+        with moved():
+            mwant, mcounts, _, mtrips, _ = counted(plain)
+        if sum(mcounts.values()):
+            raise RuntimeError(f"{name}: the plain run launched {mcounts}")
+        row.update(max_state_err_vs_jax=float(np.abs(
+            res.states - ref["states"]).max()),
+            jax_iterations=ref["iterations"].tolist(),
+            jax_chaotic=bool(ref["chaotic"]),
+            jax_moved_state_err=float(ref["moved_state_err"]),
+            plain_moved_state_err=float(np.abs(
+                mwant.states - want.states).max()),
+            plain_moved_ip_trips=mtrips,
+            plain_moved_iterations=mwant.metrics.iter_history,
+            plain_moved_state_err_vs_jax_moved=float(np.abs(
+                mwant.states - ref["moved_states"]).max()))
     log(f"{name}: " + json.dumps(row))
-    if not (err <= V8_STATE_TOL and trips == plain_trips
+    if not (err <= state_tol and trips == plain_trips
             and res.metrics.iter_history == want.metrics.iter_history):
         raise RuntimeError(f"{name}: differs from the plain-version run "
-                           f"(states {err:.3e}, trips {trips} against "
-                           f"{plain_trips})")
+                           f"(states {err:.3e} against {state_tol:.3e}"
+                           f", trips {trips} against {plain_trips})")
+    if ref is not None and not ref["chaotic"] and not (
+            row["max_state_err_vs_jax"] <= STATE_TOL
+            and res.metrics.iter_history == ref["iterations"].tolist()):
+        raise RuntimeError(f"{name}: differs from the JAX run (states "
+                           f"{row['max_state_err_vs_jax']:.3e}, ADMM "
+                           f"iterations {res.metrics.iter_history} against "
+                           f"{ref['iterations'].tolist()})")
     return row
 
 
@@ -2295,6 +2415,9 @@ def aladin_path(thomas, paths, smi, full):
 CLUSTER_PHASES = ("panel factor", "publish and cluster barrier",
                   "panel updates", "stage product", "copies",
                   "back substitution")
+BIG_PHASES = ("panel factor and publish", "flag and barrier waits",
+              "panel updates", "stage product", "copies",
+              "back substitution")
 PHASES = {"warp": ("load", "equilibrate", "eliminate", "refine",
                    "store and product", "back substitution"),
           "wide": ("load and product", "equilibrate", "eliminate", "refine",
@@ -2747,13 +2870,14 @@ def clock_split(thomas, systems):
             ("wide", "multi-vehicle V=4 float64", (1, 7, 80)),
             ("wide", "multi-vehicle V=3 float32", (1, 7, 45)),
             ("cluster", "centralized V=4 float64", (1, 14, 108)),
-            ("cluster", "consensus V=8 float64", (1, 7, 320))):
+            ("cluster", "consensus V=8 float64", (1, 7, 320)),
+            ("big", "consensus V=9 float64", (1, 7, 405))):
         d, u, r = systems[path][key]
         eq = r.dtype != torch.float64
         _, clocks = thomas.launch_kernel(d, u, r, eq, kernel=name,
                                          profile=True)
-        if name == "cluster":
-            row = dict(cluster_clock_row(clocks, key), path=path)
+        if name in ("cluster", "big"):
+            row = dict(cluster_clock_row(clocks, key, name), path=path)
         else:
             c = clocks[0].tolist()
             row = dict(kernel=name, path=path, shape=list(key),
@@ -2766,18 +2890,19 @@ def clock_split(thomas, systems):
     return out
 
 
-def cluster_clock_row(clocks, shape):
-    """The cluster kernel's clocks ``[S, R, 6]`` of one solve, first system:
-    per CTA, the first CTA's per stage, and the panel factors summed over
-    the CTAs (they are one serial chain: a CTA factors its panels while the
-    others wait at the next cluster barrier)."""
+def cluster_clock_row(clocks, shape, kernel="cluster"):
+    """The cluster or big kernel's clocks ``[S, R, 6]`` of one solve, first
+    system: per CTA, the first CTA's per stage, and the panel factors summed
+    over the CTAs (they are one serial chain: a CTA factors its panels
+    while the others wait at the next cluster barrier or flag)."""
     c = clocks[0].cpu().numpy()
     t, b = shape[1], shape[2]
-    first = dict(zip(CLUSTER_PHASES, c[0].tolist()))
-    return dict(kernel="cluster", shape=list(shape), cluster=int(c.shape[0]),
+    names = CLUSTER_PHASES if kernel == "cluster" else BIG_PHASES
+    first = dict(zip(names, c[0].tolist()))
+    return dict(kernel=kernel, shape=list(shape), cluster=int(c.shape[0]),
                 first_cta=first,
                 first_cta_per_stage={k: v / t for k, v in first.items()},
-                per_cta=[dict(zip(CLUSTER_PHASES, x)) for x in c.tolist()],
+                per_cta=[dict(zip(names, x)) for x in c.tolist()],
                 factor_chain_clocks=int(c[:, 0].sum()),
                 factor_clocks_per_pivot=float(c[:, 0].sum()) / (t * b),
                 first_cta_total=int(c[0].sum()))
@@ -2785,26 +2910,67 @@ def cluster_clock_row(clocks, shape):
 
 def cluster_split(thomas, rng, dev):
     """Phase 3's clock64() split of the cluster kernel at (1, 14, 108) and
-    (2, 7, 264) on KKT-style saddle systems, float64 and float32
-    equilibrated; the profiling build gives the same bits as the other."""
+    (2, 7, 264), float64 and float32 equilibrated, and of the big kernel at
+    (1, 7, 405) float64 and (1, 7, 605) float32 equilibrated, on KKT-style
+    saddle systems; the profiling build gives the same bits as the
+    other."""
     out = []
-    for shape in ((1, 14, 108), (2, 7, 264)):
-        for dtype in (torch.float64, torch.float32):
-            eq = dtype != torch.float64
-            d, u, r = (torch.as_tensor(a, dtype=dtype, device=dev)
-                       for a in make_system(rng, *shape, "kkt_saddle"))
-            got, clocks = thomas.launch_kernel(d, u, r, eq, kernel="cluster",
-                                               profile=True)
-            want = thomas.launch_kernel(d, u, r, eq, kernel="cluster")
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise RuntimeError(f"the cluster kernel's profiling build "
-                                   f"differs at {shape} {dtype}")
-            row = dict(cluster_clock_row(clocks, shape),
-                       dtype=str(dtype)[6:], equilibrated=eq)
-            log(json.dumps(row))
-            out.append(row)
+    for kernel, shapes in (("cluster", ((1, 14, 108), (2, 7, 264))),
+                           ("big", ((1, 7, 405), (1, 7, 605)))):
+        for shape in shapes:
+            for dtype in (torch.float64, torch.float32):
+                if kernel == "big" and dtype != PAST_REACH[shape][0]:
+                    continue
+                eq = dtype != torch.float64
+                d, u, r = (torch.as_tensor(a, dtype=dtype, device=dev)
+                           for a in make_system(rng, *shape, "kkt_saddle"))
+                got, clocks = thomas.launch_kernel(d, u, r, eq, kernel=kernel,
+                                                   profile=True)
+                want = thomas.launch_kernel(d, u, r, eq, kernel=kernel)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"the {kernel} kernel's profiling "
+                                       f"build differs at {shape} {dtype}")
+                row = dict(cluster_clock_row(clocks, shape, kernel),
+                           dtype=str(dtype)[6:], equilibrated=eq)
+                log(json.dumps(row))
+                out.append(row)
     return out
+
+
+def big_graph_replay(thomas, rng, dev):
+    """One big-kernel solve at (1, 7, 405) float64 captured in a CUDA graph
+    and replayed three times: each replay gives the eager call's bits, and
+    the capture records one launch, each replay counts one."""
+    d, u, r = (torch.as_tensor(a, dtype=torch.float64, device=dev)
+               for a in make_system(rng, 1, 7, 405, "kkt_saddle"))
+    want = thomas.launch_kernel(d, u, r, False)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    captured = thomas.captured["big"]
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        got = thomas.launch_kernel(d, u, r, False)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    if thomas.captured["big"] != captured + 1:
+        raise RuntimeError("the captured big-kernel solve was not counted")
+    same = []
+    for _ in range(3):
+        got.fill_(float("nan"))
+        before = thomas.launches_by_kernel["big"]
+        thomas.replay(graph, {"big": 1})
+        torch.cuda.synchronize()
+        same.append(bool(torch.equal(got, want))
+                    and thomas.launches_by_kernel["big"] == before + 1)
+    log(f"big kernel at (1, 7, 405) float64, captured and replayed: same "
+        f"bits as the eager call {same}")
+    if not all(same):
+        raise RuntimeError("a replayed big-kernel solve differs from the "
+                           "eager call")
+    return dict(shape=[1, 7, 405], replays_same_bits=same)
 
 
 def kernel_entry(name, real, paths, path, shape, at_shapes=()):
@@ -2841,32 +3007,6 @@ def kernel_entry(name, real, paths, path, shape, at_shapes=()):
                                  launches=paths[p][name])
                             for p, shp in at_shapes]
     return out
-
-
-def big_entry(synth, paths):
-    """The big kernel's line. No driven path launches it (the cluster kernel
-    holds every width a path gives, and the big kernel takes only widths
-    past the cluster's reach), so its numbers are phase 3's, the kernel
-    forced onto the 4-vehicle centralized shape (1, 14, 108) in float64
-    beside the cluster kernel; its error is the largest over the forced
-    calls."""
-    forced = [r for r in synth if r["kernel"] == "big"]
-    at = next(r for r in synth if r.get("big_ms") is not None
-              and r["shape"] == [1, 14, 108] and r["dtype"] == "float64")
-    launches = sum(c["big"] for c in paths.values())
-    return dict(
-        name="block_thomas_big", route="cuda",
-        source="dlp_admm_torch/csrc/block_thomas_big.cu", replaces=REPLACES,
-        launches=launches,
-        launches_by_path={p: c["big"] for p, c in paths.items()},
-        path=None, shape=[1, 14, 108], dtype="float64",
-        max_abs_err=max(r["max_abs_err"] for r in forced),
-        max_rel_err=max(r["max_rel_err"] for r in forced),
-        worst_rel_err=max(r["max_rel_err"] for r in forced), tol=at["tol"],
-        ms=at["big_ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
-        bound_us=at["bound_us"], bound_by=at["bound_by"],
-        library_ms=at["library_ms"],
-        us_per_pivot=1e3 * at["big_ms"] / (14 * 108))
 
 
 def polygon_gap(p, q):

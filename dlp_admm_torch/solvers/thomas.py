@@ -36,9 +36,13 @@ Four kernels, chosen by the block width (:func:`kernel_plan`):
   barrier a panel (each entry taking the plain elimination's operations in
   their order), the stage products on the float64 tensor cores;
 * ``big`` (``csrc/block_thomas_big.cu``, compiled once per element type),
-  every width past the cluster's reach: one thread block per system, the
-  tile in shared memory where it fits (else in a device workspace), two
-  block barriers a pivot step.
+  every width past the cluster's reach: the cluster kernel's blocks and
+  order of work over a grid of co-resident CTAs per system (one a panel
+  and one more, each holding a C and a [U | g] block: 27 at 405, 39 at
+  605; past 768 in float64 and 1568 in float32 the blocks live in a
+  device workspace), each panel published through L2 behind a flag, the CTAs
+  looping over systems where the card does not hold them all at once; a
+  cooperative launch.
 
 :func:`block_thomas_solve` takes the plain version for tensors on the CPU and
 launches a kernel for tensors on a CUDA device; there is no fallback between
@@ -89,8 +93,7 @@ WIDE_CLASSES = {
                     106: (7, (4, 2), (14, 4)), 138: (9, (5, 4), None)},
 }
 WIDE_PROFILE_BP = 80        # the class the profiling build is compiled for
-BIG_THREADS = 512           # threads a block of the big kernel
-BIG_MAX_WARPS = 16          # the big kernel's candidate slots (512 threads)
+BIG_THREADS = 256           # threads a CTA of the big kernel
 CLUSTER_THREADS = 256       # threads a CTA of the cluster kernel
 CLUSTER_NB = 16             # its panel and column-block width
 CLUSTER_LDB = CLUSTER_NB + 1    # a block's row stride in shared memory
@@ -236,19 +239,6 @@ def wide_bytes(b: int, elem: int, nw: int, ncl: int, rpw: int,
                                                            nt)
 
 
-def big_bytes(b: int, elem: int, tile_in_smem: bool) -> int:
-    """Shared-memory bytes of one block of the big kernel (``big_bytes`` in
-    ``csrc/block_thomas_big.cu``): the pivot row and row j ``[2, 2B+1]``,
-    the new g column, the row scales and the reciprocal pivots ``[3, B]``
-    and, ``tile_in_smem``, the tile ``[B, 2B+1]``, rounded up to 16 bytes;
-    then the warps' candidates (8 + 4 bytes a warp slot) and the pivot
-    rows ``int[B]`` rounded up to 16 bytes."""
-    w = 2 * b + 1
-    n = elem * (2 * w + 3 * b + (b * w if tile_in_smem else 0))
-    return (-(-n // 16) * 16 + 12 * BIG_MAX_WARPS
-            + -(-4 * b // 16) * 16)
-
-
 def cluster_blocks(b: int, r: int) -> tuple[int, int, int]:
     """(Bp, C blocks, [U | g] blocks) of the cluster kernel: B padded to
     16 columns, and the column blocks the CTA that holds the most of them
@@ -275,6 +265,54 @@ def cluster_bytes(b: int, elem: int, r: int, prefetch: bool) -> int:
          + (mc + mr) * CLUSTER_NB * CLUSTER_LDB + 2 * bp
          + 2 * CLUSTER_NB * CLUSTER_LDB)
     return -(-elem * n // 16) * 16 + -(-4 * bp // 16) * 16 + 96 + 272
+
+
+def big_bytes(b: int, elem: int, r: int, prefetch: bool,
+              tile_in_smem: bool) -> int:
+    """Shared-memory bytes of one CTA of the big kernel in a grid of ``r``
+    CTAs a system (``big_bytes`` in ``csrc/block_thomas_big.cu``): its
+    blocks ``[Bp][17]``, one tile or two where the next stage is
+    prefetched, where they live there (``tile_in_smem``), a panel's
+    pivot-row values for each block ``[16][17]``, the row maxima and scales
+    ``[2, Bp]``, the multipliers of the rows a panel's swaps touch
+    ``[32][17]``, rounded up to 16 bytes; then the 4 factor warps' pivot
+    candidates (96 bytes), a panel's pivot rows, the rows its swaps touch,
+    where each pivot row is among them and their count (``int[68]``: 272
+    bytes), and the pivot rows of the panel the CTA factors (64 bytes)."""
+    bp, mc, mr = cluster_blocks(b, r)
+    tile = ((2 if prefetch else 1) * (mc + mr) * bp * CLUSTER_LDB
+            if tile_in_smem else 0)
+    n = (tile + (mc + mr) * CLUSTER_NB * CLUSTER_LDB + 2 * bp
+         + 2 * CLUSTER_NB * CLUSTER_LDB)
+    return -(-elem * n // 16) * 16 + 96 + 272 + 64
+
+
+def big_sync_ints(b: int) -> int:
+    """Ints of one group's sync workspace of the big kernel (``sync_ints``
+    in ``csrc/block_thomas_big.cu``): each panel's pivot rows
+    ``[nq, 16]``, its flag ``[nq]`` and the barrier count, rounded up to
+    32 (128 bytes)."""
+    nq = -(-b // CLUSTER_NB)
+    return -(-(nq * (CLUSTER_NB + 1) + 1) // 32) * 32
+
+
+def big_ctas(b: int, elem: int, smem_limit: int = H100_SMEM_LIMIT,
+             sm_count: int = H100_SM_COUNT) -> tuple | None:
+    """(CTAs a system, prefetch, blocks in shared memory) of the big
+    kernel for width ``b``, or None past its reach: one CTA a panel and one
+    more (at most the SMs), so that a CTA holds one C block and one
+    [U | g] block; the blocks in its shared memory where they fit, the next
+    stage prefetched where two tiles fit, else in a device workspace, as
+    long as what stays in shared memory fits. (Fewer CTAs with more blocks
+    each also fit up to 768 in float64, but are slower: 35.0 against 21.8
+    ms at 605 in float32, equilibrated, on an H100;
+    ``tools/time_big_ctas.py``, PERF.md.)"""
+    r = min(-(-b // CLUSTER_NB) + 1, sm_count)
+    if big_bytes(b, elem, r, False, True) <= smem_limit:
+        return r, big_bytes(b, elem, r, True, True) <= smem_limit, True
+    if big_bytes(b, elem, r, False, False) <= smem_limit:
+        return r, False, False
+    return None
 
 
 def cluster_size(b: int, elem: int,
@@ -308,7 +346,8 @@ def wide_classes(dtype: torch.dtype, equilibrate: bool) -> dict:
 def kernel_plan(s: int, t: int, b: int, dtype: torch.dtype,
                 equilibrate: bool = False, kernel: str | None = None,
                 smem_limit: int = H100_SMEM_LIMIT,
-                sm_count: int = H100_SM_COUNT) -> dict:
+                sm_count: int = H100_SM_COUNT,
+                co_resident: int | None = None) -> dict:
     """Which kernel solves ``S`` systems of ``T`` stages of width ``B`` and
     how it is launched.
 
@@ -319,9 +358,12 @@ def kernel_plan(s: int, t: int, b: int, dtype: torch.dtype,
     warps into a block, and keeps every stage's ``X_k | y_k`` in shared
     memory where that fits the limit, else in global scratch. The cluster
     kernel launches ``S * cluster`` CTAs in clusters of ``cluster``
-    (:func:`cluster_size`). The big kernel keeps its tile in shared memory
-    where it fits the limit, else in a device workspace. Raises
-    ``ValueError`` for a width the named kernel does not hold.
+    (:func:`cluster_size`). The big kernel runs a grid of ``ctas`` CTAs a
+    system (:func:`big_ctas`) in ``groups`` groups, as many systems at once
+    as ``co_resident`` CTAs (what the device holds at once; one an SM unless
+    given) allow, each group looping over its systems. Raises
+    ``ValueError`` for a width the named kernel does not hold, or a grid
+    whose CTAs the device cannot hold at once.
     """
     elem = torch.finfo(dtype).bits // 8
     classes = wide_classes(dtype, equilibrate)
@@ -346,14 +388,26 @@ def kernel_plan(s: int, t: int, b: int, dtype: torch.dtype,
                     panels=bp // CLUSTER_NB, c_blocks=mc, rhs_blocks=mr,
                     smem_bytes=cluster_bytes(b, elem, r, prefetch))
     if kernel == "big":
-        tile_in_smem = big_bytes(b, elem, True) <= smem_limit
-        need = big_bytes(b, elem, tile_in_smem)
-        if need > smem_limit:
+        size = big_ctas(b, elem, smem_limit, sm_count)
+        if size is None:
+            need = big_bytes(b, elem, min(-(-b // CLUSTER_NB) + 1, sm_count),
+                             False, False)
             raise ValueError(f"B={b} in {dtype} needs {need} bytes of shared "
-                             f"memory beside the big kernel's tile; this "
-                             f"device allows {smem_limit}")
-        return dict(kernel="big", threads=BIG_THREADS, blocks=s,
-                    tile_in_smem=tile_in_smem, smem_bytes=need)
+                             f"memory a CTA beside the big kernel's blocks; "
+                             f"this device allows {smem_limit}")
+        r, prefetch, tile_in_smem = size
+        co_resident = sm_count if co_resident is None else co_resident
+        if r > co_resident:
+            raise ValueError(f"B={b} in {dtype}: the big kernel's {r} CTAs a "
+                             f"system are not co-resident on this device "
+                             f"({co_resident} at once)")
+        groups = min(s, co_resident // r)
+        bp, mc, mr = cluster_blocks(b, r)
+        return dict(kernel="big", ctas=r, groups=groups, blocks=groups * r,
+                    threads=BIG_THREADS, padded=bp, panels=bp // CLUSTER_NB,
+                    c_blocks=mc, rhs_blocks=mr, prefetch=prefetch,
+                    tile_in_smem=tile_in_smem, co_resident=co_resident,
+                    smem_bytes=big_bytes(b, elem, r, prefetch, tile_in_smem))
     if kernel == "wide":
         bp = fit(b)
         if bp is None:
@@ -405,8 +459,16 @@ def _lib(name: str):
             lib.block_thomas_cluster_max_active.restype = i32
             elem_bytes = lib.block_thomas_cluster_elem_bytes
         elif name.startswith("block_thomas_big"):
-            lib.block_thomas_big.argtypes = [ptr] * 8 + [i32] * 7 + [sz, ptr]
+            lib.block_thomas_big.argtypes = [ptr] * 13 + [i32] * 9 + [
+                sz, ptr]
             lib.block_thomas_big.restype = i32
+            lib.block_thomas_big_max_active.argtypes = [i32] * 5 + [
+                ctypes.POINTER(ctypes.c_int)]
+            lib.block_thomas_big_max_active.restype = i32
+            lib.block_thomas_big_smem_bytes.argtypes = [i32] * 4
+            lib.block_thomas_big_smem_bytes.restype = sz
+            lib.block_thomas_big_sync_ints.argtypes = [i32]
+            lib.block_thomas_big_sync_ints.restype = sz
             elem_bytes = lib.block_thomas_big_elem_bytes
         elif name.startswith("block_thomas_wide"):
             lib.block_thomas_wide.argtypes = [ptr] * 7 + [i32] * 6 + [sz, ptr]
@@ -474,6 +536,33 @@ def cluster_max_active(b: int, dtype: torch.dtype, equilibrate: bool,
     return count.value
 
 
+def big_co_resident(b: int, dtype: torch.dtype, equilibrate: bool,
+                    device="cuda") -> int:
+    """How many CTAs of the big kernel's plan for width ``b`` the device
+    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times
+    its SMs), asked once per plan."""
+    smem_limit, sm_count = device_limits(device)
+    plan = kernel_plan(1, 1, b, dtype, equilibrate, "big", smem_limit,
+                       sm_count)
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    key = (index, b, dtype, equilibrate)
+    if key not in _limits:
+        lib = _lib(library_name("big", dtype))
+        count = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            rc = lib.block_thomas_big_max_active(
+                b, plan["ctas"], int(plan["prefetch"]),
+                int(plan["tile_in_smem"]), int(equilibrate),
+                ctypes.byref(count))
+        if rc != 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor"
+                               f" failed: {rc}")
+        _limits[key] = count.value
+    return _limits[key]
+
+
 def _check(diag, upper, rhs):
     if rhs.dim() != 3:
         raise ValueError(f"rhs must be [S, T, B], got {tuple(rhs.shape)}")
@@ -503,7 +592,8 @@ def launch_kernel(diag: torch.Tensor, upper: torch.Tensor, rhs: torch.Tensor,
 
     ``profile=True`` (float64 unequilibrated or float32 equilibrated; the
     warp kernel for B <= 20, the wide kernel for 32 < B <= 80, the cluster
-    kernel at any width it holds) also returns ``[S, 6]`` int64 clocks per
+    kernel and the big kernel at any width they hold) also returns ``[S, 6]``
+    int64 clocks per
     system spent in (warp kernel: load, equilibrate, elimination,
     refinement, storing ``X_k | y_k`` and the product for the next stage,
     back substitution; wide kernel: load and the product of the stage,
@@ -513,7 +603,8 @@ def launch_kernel(diag: torch.Tensor, upper: torch.Tensor, rhs: torch.Tensor,
     CTA's own warps included), the panel updates (and the refinement's),
     the stage product (and the equilibrated variant's scaling and
     residual), the copies in and out, and the back substitution (the first
-    CTA).
+    CTA); for the big kernel ``[S, ctas, 6]``, the same with the flag and
+    barrier waits in place of the cluster barriers.
     Under stream capture the launch is recorded into the graph and
     counted in :data:`captured`; :func:`replay` counts it when it runs.
     """
@@ -528,6 +619,10 @@ def launch_kernel(diag: torch.Tensor, upper: torch.Tensor, rhs: torch.Tensor,
     smem_limit, sm_count = device_limits(rhs.device)
     plan = kernel_plan(s, t, b, rhs.dtype, equilibrate, kernel, smem_limit,
                        sm_count)
+    if plan["kernel"] == "big":
+        plan = kernel_plan(s, t, b, rhs.dtype, equilibrate, "big",
+                           smem_limit, sm_count, big_co_resident(
+                               b, rhs.dtype, equilibrate, rhs.device))
     name = plan["kernel"]
     lib = _lib(library_name(name, rhs.dtype))
     out = torch.empty_like(rhs)
@@ -580,26 +675,42 @@ def launch_kernel(diag: torch.Tensor, upper: torch.Tensor, rhs: torch.Tensor,
                 upper.shape[1], int(equilibrate), r, int(plan["prefetch"]),
                 plan["smem_bytes"], stream)
         elif name == "big":
-            # scratch: every stage's X_k | y_k, the tile where it does not
-            # fit shared memory and, equilibrated, the scaled stage system
-            # and every pivot step's multipliers; the kernel writes each
-            # element before reading it
-            if profile:
-                raise ValueError("the big kernel has no profiling build")
+            # scratch: every stage's X_k | y_k, each group's published
+            # panels, its blocks where they do not fit shared memory and,
+            # equilibrated, the scaled stage system, the first solution and
+            # each CTA's row maxima (the kernel writes each element before
+            # reading it); the flags and barrier counts start at zero (a
+            # memset, also in a captured graph)
+            if profile and not plan["tile_in_smem"]:
+                raise ValueError(f"the big kernel's profiling build keeps its "
+                                 f"blocks in shared memory; B={b} does not")
             xs = torch.empty_like(diag)
             ys = torch.empty_like(rhs)
-            w = 2 * b + 1
-            work = None if plan["tile_in_smem"] else torch.empty(
-                (s, b * w), dtype=rhs.dtype, device=rhs.device)
-            orig = torch.empty((s, b * w + b * b), dtype=rhs.dtype,
-                               device=rhs.device) if equilibrate else None
+            bp, r, g = plan["padded"], plan["ctas"], plan["groups"]
+            wr = bp + CLUSTER_NB
+
+            def scratch(*shape):
+                return torch.empty(shape, dtype=rhs.dtype, device=rhs.device)
+            panels = scratch(g, bp // CLUSTER_NB, bp, CLUSTER_NB)
+            sync = torch.zeros((g, big_sync_ints(b)), dtype=torch.int32,
+                               device=rhs.device)
+            tiles = None if plan["tile_in_smem"] else scratch(
+                g * r, plan["c_blocks"] + plan["rhs_blocks"], bp,
+                CLUSTER_LDB)
+            orig, ysc, rmaxw = ((scratch(g, bp, bp + wr), scratch(g, bp, wr),
+                                 scratch(g, r, bp)) if equilibrate
+                                else (None, None, None))
+            if profile:
+                prof = torch.zeros((s, r, 6), dtype=torch.int64,
+                                   device=rhs.device)
             rc = lib.block_thomas_big(
                 diag.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
                 out.data_ptr(), xs.data_ptr(), ys.data_ptr(),
-                None if work is None else work.data_ptr(),
-                None if orig is None else orig.data_ptr(), s, t, b,
-                upper.shape[1], int(equilibrate), plan["threads"],
-                int(plan["tile_in_smem"]), plan["smem_bytes"], stream)
+                *(None if x is None else x.data_ptr()
+                  for x in (orig, ysc, rmaxw, panels, tiles, sync, prof)),
+                s, t, b, upper.shape[1], int(equilibrate), r, g,
+                int(plan["prefetch"]), int(plan["tile_in_smem"]),
+                plan["smem_bytes"], stream)
         else:
             # scratch: every stage's X_k | y_k and, equilibrated, the scaled
             # stage system and every pivot step's multipliers (rows of the
@@ -636,7 +747,8 @@ def launch_kernel(diag: torch.Tensor, upper: torch.Tensor, rhs: torch.Tensor,
                     plan["bp"], plan["smem_bytes"], stream)
     if rc != 0:
         raise RuntimeError(f"block_thomas_{name} launch failed: code {rc} "
-                           f"(a cudaError, or -1 arguments, -2 layout)")
+                           f"(a cudaError, or -1 arguments, -2 layout, -3 "
+                           f"CTAs not co-resident)")
     if torch.cuda.is_current_stream_capturing():
         captured[name] += 1
     else:

@@ -188,20 +188,25 @@ def test_kernel_plan_at_the_centralized_widths():
     # 4 vehicles are past the wide kernel's float64 range (97) and its
     # float32 equilibrated range (106): the cluster kernel, 4 CTAs of 256
     # threads, 7 panels, 2 C and 2 [U | g] blocks a CTA, the next stage
-    # prefetched; the big kernel, forced, keeps its tile in shared memory
-    # (187 KB of the 227 KB a block may have in float64)
+    # prefetched; the big kernel, forced, runs one CTA a panel and one more,
+    # each holding a C and a [U | g] block, the next stage prefetched (70 KB
+    # of the 227 KB a CTA may have in float64)
     for dtype, eq, smem in ((f64, False, 137520), (f32, True, 69168)):
         plan = thomas.kernel_plan(1, 14, 108, dtype, equilibrate=eq)
         assert plan == dict(kernel="cluster", cluster=4, prefetch=True,
                             threads=256, blocks=4, padded=112, panels=7,
                             c_blocks=2, rhs_blocks=2, smem_bytes=smem)
     plan = thomas.kernel_plan(1, 14, 108, f64, kernel="big")
-    assert plan == dict(kernel="big", threads=512, blocks=1,
-                        tile_in_smem=True, smem_bytes=194176)
+    assert plan == dict(kernel="big", ctas=8, groups=1, blocks=8,
+                        threads=256, padded=112, panels=7, c_blocks=1,
+                        rhs_blocks=1, prefetch=True, tile_in_smem=True,
+                        co_resident=132, smem_bytes=71856)
     plan = thomas.kernel_plan(1, 14, 108, f32, equilibrate=True,
                               kernel="big")
-    assert plan == dict(kernel="big", threads=512, blocks=1,
-                        tile_in_smem=True, smem_bytes=97408)
+    assert plan == dict(kernel="big", ctas=8, groups=1, blocks=8,
+                        threads=256, padded=112, panels=7, c_blocks=1,
+                        rhs_blocks=1, prefetch=True, tile_in_smem=True,
+                        co_resident=132, smem_bytes=36144)
     # the wide kernel forced past its classes still refuses
     with pytest.raises(ValueError, match="B <= 97"):
         thomas.kernel_plan(1, 14, 108, f64, kernel="wide")
@@ -241,18 +246,30 @@ def test_kernel_plan_at_fourteen_stages(b, dtype, eq, kernel, bp, smem):
     (264, torch.float32, True, False, 8656)])
 def test_kernel_plan_past_the_wide_classes(b, dtype, eq, in_smem, smem):
     """Every width past the wide kernel's classes goes to the cluster
-    kernel (up to its reach); the big kernel, forced onto them (and the
-    plan past that reach), keeps its tile [B, 2B+1] in shared memory where
-    it fits the 232,448 bytes a block may have (float64 up to 118, float32
-    up to 168), else in a device workspace, as at the synthetic 264."""
+    kernel (up to its reach). The big kernel, forced onto them, is a grid
+    of one CTA a panel and one more, its blocks in their shared memory, for
+    each of the 7 systems at once; so it holds on chip every width that the
+    one-block big kernel before it held (``in_smem``: its tile [B, 2B+1]
+    in the 232,448 bytes a block may have, float64 up to 118, float32 up
+    to 168, in ``smem`` bytes where given) and those it kept in a device
+    workspace, as the synthetic 264."""
     assert thomas.kernel_plan(7, 7, b, dtype, eq)["kernel"] == "cluster"
+    elem = dtype.itemsize
+    # the one-block kernel's layout: the pivot row and row j [2, 2B+1],
+    # three B-vectors and, in shared memory, the tile; 16 warps'
+    # candidates and int[B]
+    one_block = (-(-elem * (2 * (2 * b + 1) + 3 * b
+                            + (b * (2 * b + 1) if in_smem else 0)) // 16) * 16
+                 + 12 * 16 + -(-4 * b // 16) * 16)
+    assert (one_block <= thomas.H100_SMEM_LIMIT) and (
+        smem is None or one_block == smem)
     plan = thomas.kernel_plan(7, 7, b, dtype, eq, kernel="big")
-    assert (plan["kernel"], plan["blocks"], plan["tile_in_smem"]) == (
-        "big", 7, in_smem)
-    assert plan["smem_bytes"] == thomas.big_bytes(b, dtype.itemsize, in_smem)
-    assert plan["smem_bytes"] <= thomas.H100_SMEM_LIMIT
-    if smem is not None:
-        assert plan["smem_bytes"] == smem
+    r = plan["ctas"]
+    assert (plan["kernel"], plan["groups"], plan["blocks"],
+            plan["tile_in_smem"]) == ("big", 7, 7 * r, True)
+    assert plan["smem_bytes"] == thomas.big_bytes(
+        b, elem, r, plan["prefetch"], True) <= thomas.H100_SMEM_LIMIT
+    assert r == -(-b // 16) + 1
 
 
 @pytest.mark.parametrize("shape", [(1, 14, 108), (1, 7, 264)],

@@ -3,8 +3,12 @@ card: the warp kernel (B <= 32), the wide kernel (above, up to its width
 classes, and forced onto the narrow shapes), the cluster kernel (past the
 wide classes: the 4-vehicle centralized width 108, a synthetic 264, the
 8-vehicle consensus edge width 320 and the widths where its cluster and
-block counts change) and the big kernel (past the cluster's reach, and
-forced onto 108 and 264), plain and equilibrated, at 7 and at 14 stages;
+block counts change) and the big kernel (past the cluster's reach: the
+9-vehicle edge 405, the 11-vehicle edge 605, a ragged 401, three systems
+at 405, its blocks in the device workspace at 800 and 1600; forced onto
+108 and 264, and onto 320, where it gives the cluster kernel's bits; a
+solve captured in a CUDA graph and replayed), plain and equilibrated, at
+7 and at 14 stages;
 and the planners that run them, graphed on the card against the CPU, and a
 checkpointed run resumed on the card.
 
@@ -128,16 +132,23 @@ def test_centralized_four_vehicle_width_is_refused(cuda, dtype):
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("kind,equilibrate", VARIANTS,
                          ids=[f"{k}{'-eq' if e else ''}" for k, e in VARIANTS])
-@pytest.mark.parametrize("shape", ((1, 14, 108), (2, 7, 264)),
+@pytest.mark.parametrize("shape", ((1, 14, 108), (2, 7, 264), (1, 7, 405),
+                                   (1, 7, 401), (3, 7, 405), (1, 7, 605)),
                          ids=_shape_id)
 def test_big_kernel_matches_plain(cuda, shape, kind, equilibrate, dtype):
-    """The big kernel forced onto the shapes the cluster kernel now solves:
-    the tile in shared memory (108) and in the device workspace (264);
+    """The big kernel at the 9-vehicle edge width 405 (27 CTAs), a ragged
+    401, three systems at 405 (81 CTAs at once) and the 11-vehicle edge
+    width 605 (39 CTAs, the next stage prefetched in float32), and forced
+    onto the
+    shapes the cluster kernel solves (108, 264, and in float32 405),
     float32 unequilibrated at 108, which the wide kernel holds."""
     d, u, r = _system(11, shape, kind, dtype, cuda)
     plan = thomas.kernel_plan(*shape, dtype, equilibrate)["kernel"]
-    assert plan == ("wide" if dtype == torch.float32 and not equilibrate
-                    and shape[2] <= 138 else "cluster")
+    if thomas.cluster_size(shape[2], d.element_size()) is None:
+        assert plan == "big"
+    else:
+        assert plan == ("wide" if dtype == torch.float32 and not equilibrate
+                        and shape[2] <= 138 else "cluster")
     before = thomas.launches_by_kernel["big"]
     got = thomas.launch_kernel(d, u, r, equilibrate, kernel="big")
     assert thomas.launches_by_kernel["big"] == before + 1
@@ -146,6 +157,89 @@ def test_big_kernel_matches_plain(cuda, shape, kind, equilibrate, dtype):
     assert bool(torch.isfinite(got).all())
     rel = float((got - want).abs().max() / want.abs().max())
     assert rel < TOL[dtype], rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_big_kernel_gives_the_cluster_kernels_bits(cuda, dtype):
+    """Forced onto the 8-vehicle edge width 320 (21 CTAs publishing their
+    panels through L2, against the cluster kernel's 16 through distributed
+    shared memory) the big kernel takes every entry's operations in the
+    same order, so it gives the cluster kernel's bits."""
+    eq = dtype == torch.float32
+    d, u, r = _system(13, (2, 7, 320), "kkt_saddle", dtype, cuda)
+    big = thomas.launch_kernel(d, u, r, eq, kernel="big")
+    cluster = thomas.launch_kernel(d, u, r, eq, kernel="cluster")
+    torch.cuda.synchronize()
+    assert torch.equal(big, cluster)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,equilibrate",
+                         (((1, 2, 800), torch.float64, False),
+                          ((2, 2, 1600), torch.float32, True)),
+                         ids=["800-f64", "1600-f32-eq"])
+def test_big_kernel_workspace_matches_plain(cuda, shape, dtype, equilibrate):
+    """Past the widths whose blocks a CTA's shared memory holds (768 in
+    float64, 1568 in float32) the big kernel keeps them in a device
+    workspace, one CTA a panel and one more, with the same order of
+    work."""
+    d, u, r = _system(17, shape, "kkt_saddle", dtype, cuda)
+    plan = thomas.kernel_plan(*shape, dtype, equilibrate)
+    assert plan["kernel"] == "big" and not plan["tile_in_smem"]
+    got = thomas.block_thomas_solve(d, u, r, equilibrate)
+    want = thomas.block_thomas_plain(d, u, r, equilibrate)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < TOL[dtype], rel
+
+
+@pytest.mark.cuda
+def test_big_kernel_replays_a_captured_solve_bit_for_bit(cuda):
+    """One solve at the 9-vehicle edge width, captured in a CUDA graph
+    (its flags zeroed by a memset captured with it) and replayed three
+    times: the eager call's bits each time, one launch counted a replay."""
+    d, u, r = _system(19, (1, 7, 405), "kkt_saddle", torch.float64, cuda)
+    want = thomas.launch_kernel(d, u, r)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    captured = thomas.captured["big"]
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        got = thomas.launch_kernel(d, u, r)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    assert thomas.captured["big"] == captured + 1
+    for _ in range(3):
+        got.fill_(float("nan"))
+        before = thomas.launches_by_kernel["big"]
+        thomas.replay(graph, {"big": 1})
+        torch.cuda.synchronize()
+        assert thomas.launches_by_kernel["big"] == before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_big_layout_mirrors_the_source(cuda):
+    """The wrapper's count of the big kernel's shared memory and sync
+    workspace equals the compiled source's, plan by plan, and the card
+    holds every CTA of the 9-vehicle edge's plan at once."""
+    for dtype, elem in ((torch.float64, 8), (torch.float32, 4)):
+        lib = thomas._lib(thomas.library_name("big", dtype))
+        for b in (108, 264, 320, 385, 401, 405, 529, 605, 769, 800, 1569,
+                  1600, 4000):
+            r, prefetch, tile = thomas.big_ctas(b, elem)
+            assert lib.block_thomas_big_smem_bytes(
+                b, r, int(prefetch), int(tile)) == thomas.big_bytes(
+                    b, elem, r, prefetch, tile), (b, dtype)
+            assert lib.block_thomas_big_sync_ints(b) == \
+                thomas.big_sync_ints(b)
+    n = thomas.big_co_resident(405, torch.float64, False)
+    assert n >= thomas.kernel_plan(1, 7, 405, torch.float64)["ctas"]
 
 
 # the cluster kernel's widths where its cluster size, its blocks a CTA or
@@ -486,14 +580,15 @@ def test_wrapper_checks_on_cuda(cuda):
     with pytest.raises(ValueError, match="one device"):
         thomas.block_thomas_solve(d, u, r.cpu())
     # 200 wide, past the wide kernel's shared memory, is the cluster
-    # kernel's (8 CTAs); 4000 wide, whose pivot rows alone pass the big
-    # kernel's shared-memory limit, is refused before anything launches
+    # kernel's (8 CTAs); 13000 wide, whose row maxima and scales alone pass
+    # a big-kernel CTA's shared-memory limit, is refused before anything
+    # launches
     d, u, r = _system(7, (1, 2, 200), "diag_dominant", torch.float64, cuda)
     before = dict(thomas.launches_by_kernel)
     assert bool(torch.isfinite(thomas.block_thomas_solve(d, u, r)).all())
     assert thomas.launches_by_kernel == dict(
         before, cluster=before["cluster"] + 1)
-    huge = 4000
+    huge = 13000
     total = thomas.launches
     with pytest.raises(ValueError, match="shared memory"):
         thomas.block_thomas_solve(

@@ -29,6 +29,8 @@ elimination. The CUDA kernels themselves are held against the plain version
 in ``tests/test_torch_cuda.py``, which imports no JAX so it runs on the
 card.
 """
+import random
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -409,6 +411,47 @@ CLUSTER_REACH = {torch.float64: 384, torch.float32: 528}
 CLUSTER_RANGE = {torch.float64: (81, 440), torch.float32: (98, 630)}
 
 
+def _pr8_reach(elem):
+    """The widest B the one-block big kernel of the port's first past-the-
+    cluster build took: its pivot row and row j [2, 2B+1], three B-vectors,
+    16 warps' candidates and int[B] in shared memory, the tile in a device
+    workspace."""
+    def need(b):
+        return (-(-elem * (2 * (2 * b + 1) + 3 * b) // 16) * 16 + 12 * 16
+                + -(-4 * b // 16) * 16)
+    return max(b for b in range(1, 20000) if need(b) <= thomas.H100_SMEM_LIMIT)
+
+
+def _check_big_plan(plan, s, b, elem):
+    """The big kernel's plan for S systems of width B: R CTAs a system, one
+    a panel and one more (at most the SMs), so that a CTA holds one C block
+    and one [U | g] block (C block q and [U | g] block q on CTA q mod R);
+    shared memory within the limit and equal to the source's count, the
+    blocks there where they fit, the next stage prefetched where two tiles
+    fit, else the blocks in a device workspace; every CTA of the launch
+    co-resident (one an SM) and the systems past that looped over by
+    groups."""
+    r = plan["ctas"]
+    bp, mc, mr = thomas.cluster_blocks(b, r)
+    nq = bp // 16
+    assert plan["kernel"] == "big" and plan["threads"] == 256
+    assert (plan["padded"], plan["panels"], plan["c_blocks"],
+            plan["rhs_blocks"]) == (bp, nq, mc, mr)
+    assert r == min(nq + 1, thomas.H100_SM_COUNT)
+    assert mc == -(-nq // r) and mr == nq // r + 1
+    assert r < nq + 1 or mc == mr == 1
+    tile = plan["tile_in_smem"]
+    assert plan["smem_bytes"] == thomas.big_bytes(
+        b, elem, r, plan["prefetch"], tile) <= thomas.H100_SMEM_LIMIT
+    assert tile == (thomas.big_bytes(b, elem, r, False, True)
+                    <= thomas.H100_SMEM_LIMIT)
+    assert plan["prefetch"] == (tile and thomas.big_bytes(
+        b, elem, r, True, True) <= thomas.H100_SMEM_LIMIT)
+    assert plan["co_resident"] == thomas.H100_SM_COUNT
+    assert plan["groups"] == min(s, thomas.H100_SM_COUNT // r)
+    assert plan["blocks"] == plan["groups"] * r <= thomas.H100_SM_COUNT
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("equilibrate", [False, True], ids=["plain", "eq"])
@@ -417,7 +460,8 @@ def test_cluster_plan_over_its_range(dtype, equilibrate):
     cluster kernel's: a power of two of CTAs (2-16), at most two panels
     a CTA where 16 CTAs allow it, at most 6 column blocks a CTA, the
     shared memory its layout needs within the limit (with the next stage
-    prefetched where two tiles fit); past the reach, the big kernel's."""
+    prefetched where two tiles fit); past the reach, the big kernel's: a
+    grid of co-resident CTAs, its blocks in their shared memory."""
     elem = torch.empty((), dtype=dtype).element_size()
     lo, hi = CLUSTER_RANGE[dtype]
     reach = CLUSTER_REACH[dtype]
@@ -427,6 +471,8 @@ def test_cluster_plan_over_its_range(dtype, equilibrate):
             continue
         if b > reach:
             assert plan["kernel"] == "big", b
+            _check_big_plan(plan, 3, b, elem)
+            assert plan["tile_in_smem"]
             with pytest.raises(ValueError, match="past what a cluster"):
                 thomas.kernel_plan(3, 7, b, dtype, equilibrate,
                                    kernel="cluster")
@@ -476,45 +522,124 @@ def test_cluster_plan_at_the_path_widths():
 
 
 def test_past_the_cluster_the_big_kernel_and_then_refusal():
-    """One past the cluster's reach the big kernel takes the width (its
-    tile in the device workspace); at 4000 its own rows pass the shared
-    memory and the plan refuses."""
+    """One past the cluster's reach the big kernel takes the width, its
+    blocks in the shared memory of 26 CTAs; the 9-vehicle edge (405 f64):
+    27 CTAs of one C and one [U | g] block, one tile; the 11-vehicle edge
+    (605 f32 equilibrated): 39 CTAs, two tiles (the next stage
+    prefetched); the layout's bytes by hand: [1 or 2 tiles][2 blocks][Bp]
+    [17], the pivot-row values [2][16][17], [2][Bp], the multipliers
+    [32][17], then the factor warps' candidates (96 bytes), a panel's rows
+    (272) and the factored panel's pivot rows (64). Past 768 (f64) the
+    blocks leave shared memory for the device
+    workspace; every width the one-block kernel before this one took is
+    still taken (S = 3: 3 groups where they are co-resident, fewer groups
+    looping over the systems where not), and the plan refuses only where
+    what stays in shared memory passes the limit, or where the device
+    cannot hold a system's CTAs at once."""
     plan = thomas.kernel_plan(1, 7, CLUSTER_REACH[torch.float64] + 1,
                               torch.float64)
-    assert plan["kernel"] == "big" and not plan["tile_in_smem"]
+    assert plan["kernel"] == "big" and plan["tile_in_smem"]
+    assert plan["ctas"] == 26
+    p405 = thomas.kernel_plan(1, 7, 405, torch.float64)
+    assert (p405["kernel"], p405["ctas"], p405["c_blocks"],
+            p405["rhs_blocks"], p405["prefetch"], p405["tile_in_smem"]) == (
+        "big", 27, 1, 1, False, True)
+    assert p405["smem_bytes"] == 8 * (2 * 416 * 17 + 2 * 16 * 17 + 2 * 416
+                                      + 32 * 17) + 96 + 272 + 64 == 128944
+    p605 = thomas.kernel_plan(1, 7, 605, torch.float32, True)
+    assert (p605["kernel"], p605["ctas"], p605["c_blocks"],
+            p605["rhs_blocks"], p605["prefetch"]) == ("big", 39, 1, 1, True)
+    assert p605["smem_bytes"] == 4 * (2 * 2 * 608 * 17 + 2 * 16 * 17
+                                      + 2 * 608 + 32 * 17) + 432 == 175024
+    # the 9-vehicle edge of 3 and of 9 systems: 81 CTAs at once, then 4
+    # groups of 27 (108 of the 132 SMs) looping over the 9
+    assert thomas.kernel_plan(3, 7, 405, torch.float64)["groups"] == 3
+    p9 = thomas.kernel_plan(9, 7, 405, torch.float64)
+    assert (p9["groups"], p9["blocks"]) == (4, 108)
+    for dtype, elem, first_ws in ((torch.float64, 8, 769),
+                                  (torch.float32, 4, 1569)):
+        assert thomas.kernel_plan(1, 7, first_ws - 1, dtype)["tile_in_smem"]
+        ws = thomas.kernel_plan(3, 7, first_ws, dtype)
+        _check_big_plan(ws, 3, first_ws, elem)
+        assert not ws["tile_in_smem"] and ws["ctas"] == -(-first_ws // 16) + 1
+        # the reach does not shrink: the widest width the one-block kernel
+        # took, and 4000, which it refused in float64
+        for b in (_pr8_reach(elem), 4000):
+            _check_big_plan(thomas.kernel_plan(3, 1, b, dtype), 3, b, elem)
+    assert _pr8_reach(8) < 4000
+    # past the reach: what stays in shared memory passes the limit
     with pytest.raises(ValueError, match="shared memory"):
-        thomas.kernel_plan(1, 1, 4000, torch.float64)
+        thomas.kernel_plan(1, 1, 13000, torch.float64)
+    # a device that holds fewer CTAs at once than a system needs
+    with pytest.raises(ValueError, match="co-resident"):
+        thomas.kernel_plan(1, 7, 405, torch.float64, co_resident=26)
+    assert thomas.kernel_plan(1, 7, 405, torch.float64,
+                              co_resident=264)["groups"] == 1
+    assert thomas.kernel_plan(9, 7, 405, torch.float64,
+                              co_resident=264)["groups"] == 9
 
 
-def _panel_gauss_jordan(c, m, nb=16):
-    """``C^-1 M`` the way the cluster kernel orders the work (numpy): the
-    tile padded to a multiple of ``nb`` (identity in C, zeros in M); per
-    panel of ``nb`` columns, the panel factored in place (pivot: the first
-    largest |entry| in rows i >= j of the column as updated so far, a NaN
-    above all; floored at +-1e-30; only the panel's live columns swapped
-    and updated, so column t keeps step t's multipliers, and 1 / pivot at
-    the pivot row); then the columns right of the panel late: the rows the
+def _panel_gauss_jordan(c, m, owners=1, workspace=(), seed=0):
+    """``C^-1 [U | g]`` the way the cluster and big kernels order the work
+    (numpy): the tile padded to Bp, a multiple of 16 (identity in C, zeros
+    in M), U in M blocks 0 .. Bp/16 - 1 and g alone in block Bp/16, and
+    cut into column blocks of 16: C block q and M block q held by owner
+    q mod ``owners`` in slot q // ``owners`` of its C or M slots, as many as
+    ``thomas.cluster_blocks`` plans; the owners in ``workspace`` hold their
+    slots in one array for all of them, the big kernel's device workspace
+    (where a block is held changes no arithmetic: the slots are checked).
+    Each owner runs as a coroutine, resumed in an order drawn from
+    ``seed`` among those not waiting, and reads another owner's panel only
+    from what that owner published behind the panel's flag. The owner of a
+    panel factors it in place (pivot: the first largest |entry| in rows
+    i >= j of the column as updated so far, a NaN above all; floored at
+    +-1e-30; only the panel's live columns swapped and updated, so column t
+    keeps step t's multipliers, and 1 / pivot at the pivot row) and
+    publishes a copy and its pivot rows. Each owner then updates its live
+    blocks right of the panel late, from the published copy: the rows the
     swaps touch (J and the pivot rows below it) step by step, swaps
     included, keeping each step's pivot-row values, and every other row by
-    its 16 multiply-subtracts in order. Returns the solution and the pivot
-    rows."""
+    its 16 multiply-subtracts in order; the owner of the next panel first
+    updates that block, factors and publishes it (one panel of look-ahead).
+    Returns the solution and the pivot rows."""
+    nb = thomas.CLUSTER_NB
     b = c.shape[0]
-    bp = -(-b // nb) * nb
-    tile = np.zeros((bp, bp + m.shape[1]))
+    assert m.shape == (b, b + 1)
+    bp, mc, mr = thomas.cluster_blocks(b, owners)
+    nq = bp // nb
+    tile = np.zeros((bp, 2 * bp + nb))
     tile[:, :bp] = np.eye(bp)
     tile[:b, :b] = c
-    tile[:b, bp:] = m
-    pivots = []
-    for j0 in range(0, bp, nb):
-        pan = tile[:, j0:j0 + nb]           # a view: factored in place
-        pv = []
+    tile[:b, bp:bp + b] = m[:, :b]
+    tile[:b, 2 * bp] = m[:, b]
+    # block q < nq is C block q, else M block q - nq; each owner's slots,
+    # C then M, in its own array or in the workspace's
+    held = [np.full((mc + mr, bp, nb), np.nan) for _ in range(owners)]
+    shared = np.full((len(workspace), mc + mr, bp, nb), np.nan)
+    for o, k in zip(workspace, range(len(workspace))):
+        held[o] = shared[k]
+
+    def owner_slot(q):
+        i = q if q < nq else q - nq
+        return i % owners, (0 if q < nq else mc) + i // owners
+    for q in range(nq + nq + 1):
+        o, slot = owner_slot(q)
+        assert slot < (mc if q < nq else mc + mr)
+        assert np.isnan(held[o][slot]).all()        # one block a slot
+        held[o][slot] = tile[:, q * nb:(q + 1) * nb]
+    published = {}                   # panel -> (multipliers, pivot rows)
+
+    def factor(p):
+        o, slot = owner_slot(p)
+        pan, j0, pv = held[o][slot], p * nb, []
         for t in range(nb):
             j = j0 + t
             col = pan[j:, t]
             nan = np.flatnonzero(np.isnan(col))
-            p = j + (nan[0] if len(nan) else int(np.argmax(np.abs(col))))
-            pv.append(p)
-            pan[[j, p], t:] = pan[[p, j], t:]
+            piv_row = j + (nan[0] if len(nan) else int(np.argmax(
+                np.abs(col))))
+            pv.append(piv_row)
+            pan[[j, piv_row], t:] = pan[[piv_row, j], t:]
             prow = pan[j, t:].copy()
             piv = prow[0]
             if not abs(piv) > thomas.PIVOT_FLOOR:
@@ -525,41 +650,87 @@ def _panel_gauss_jordan(c, m, nb=16):
             pan[:, t] = mult
             pan[j, t + 1:] = prow[1:] * inv
             pan[j, t] = inv
-        pivots += pv
-        trail = tile[:, j0 + nb:]
+        published[p] = (pan.copy(), pv)
+
+    def update(p, q):
+        """Block q updated late by the published panel p."""
+        o, slot = owner_slot(q)
+        trail = held[o][slot]
+        pub, pv = published[p]
+        j0 = p * nb
         touched = list(range(j0, j0 + nb)) + sorted(
-            {p for p in pv if p >= j0 + nb})
-        prows = np.zeros((nb, trail.shape[1]))
+            {r for r in pv if r >= j0 + nb})
+        rest = np.setdiff1d(np.arange(bp), touched)
+        prows = np.zeros((nb, nb))
         for t in range(nb):
-            j, p = j0 + t, pv[t]
-            trail[[j, p]] = trail[[p, j]]
+            j = j0 + t
+            trail[[j, pv[t]]] = trail[[pv[t], j]]
             prows[t] = trail[j]
-            for r in touched:
-                if r != j:
-                    trail[r] = trail[r] - pan[r, t] * prows[t]
-            trail[j] = prows[t] * pan[j, t]
-        for r in range(bp):
-            if r not in touched:
-                a = trail[r].copy()
-                for t in range(nb):
-                    a = a - pan[r, t] * prows[t]
-                trail[r] = a
-    return tile[:b, bp:], pivots[:b]
+            others = [r for r in touched if r != j]
+            trail[others] = (trail[others] - pub[others, t][:, None]
+                             * prows[t][None, :])
+            trail[j] = prows[t] * pub[j, t]
+        a = trail[rest]
+        for t in range(nb):
+            a = a - pub[rest, t][:, None] * prows[t][None, :]
+        trail[rest] = a
+
+    def run(o):
+        """One owner; yields the panel it waits for, or None."""
+        mine = [q for q in range(2 * nq + 1) if owner_slot(q)[0] == o]
+        if o == 0:
+            factor(0)
+        for p in range(nq):
+            while p not in published:
+                yield p
+            live = [q for q in mine if q > p]
+            if p + 1 < nq and owner_slot(p + 1)[0] == o:
+                update(p, p + 1)
+                factor(p + 1)
+                live.remove(p + 1)
+            for q in live:
+                update(p, q)
+                yield None
+
+    rng = random.Random(seed)
+    running = {o: run(o) for o in range(owners)}
+    waits = dict.fromkeys(running)
+    while running:
+        ready = [o for o in running if waits[o] is None
+                 or waits[o] in published]
+        assert ready, "every owner waits for a panel nobody publishes"
+        o = rng.choice(ready)
+        try:
+            waits[o] = next(running[o])
+        except StopIteration:
+            del running[o]
+    sol = np.concatenate([held[o][slot] for o, slot in map(
+        owner_slot, range(nq, 2 * nq + 1))], axis=1)
+    pivots = [r for p in range(nq) for r in published[p][1]]
+    return np.concatenate([sol[:b, :b], sol[:b, bp:bp + 1]], axis=1), \
+        pivots[:b]
 
 
 @pytest.mark.parametrize("case", ["random-5", "random-40", "random-50",
-                                  "ties", "nan"])
+                                  "ties", "nan", "random-300"])
 def test_panel_order_matches_gauss_jordan(case):
-    """The cluster kernel's order of work gives the plain elimination's
-    pivot rows and its numbers, bit for bit (each entry takes the same
-    multiplies and subtracts in the same order, only late): on random
-    systems (one panel, a ragged second panel, four panels), and on the
-    exact ties and the NaN of
+    """The cluster and big kernels' order of work gives the plain
+    elimination's pivot rows and its numbers, bit for bit (each entry takes
+    the same multiplies and subtracts in the same order, only late, by the
+    owner of its column block, from the published panel, whatever order the
+    owners run in between the panels' flags): on random systems (one panel,
+    a ragged second panel, four panels) over 3 owners, the second's blocks
+    in a workspace, and on the exact ties and the NaN of
     ``test_plain_pivot_order_follows_the_kernels_rule``, whose NaN row is
     the first pivot, floored to -1e-30, so that every later step rounds
     multipliers near 1e30: an order of summation of its own would part
-    from the plain version's pivots there."""
+    from the plain version's pivots there; and at 300 wide (19 panels)
+    over 20 owners, more than a cluster holds (the big kernel's plan at 300
+    is 20 CTAs), a third of them with their blocks in a workspace."""
     rng = np.random.default_rng(12)
+    owners, workspace = 3, (1,)
+    if case == "random-300":
+        owners, workspace = 20, tuple(range(0, 20, 3))
     if case.startswith("random"):
         b = int(case.split("-")[1])
         c = rng.normal(size=(b, b))
@@ -572,9 +743,16 @@ def test_panel_order_matches_gauss_jordan(case):
         c = cs[1] if case == "nan" else cs[0]
     m = np.random.default_rng(3).normal(size=(b, b + 1))
     pivots = []
-    want = thomas._gauss_jordan(torch.as_tensor(c)[None],
-                                torch.as_tensor(m)[None], pivots)[0].numpy()
-    got, got_piv = _panel_gauss_jordan(c, m)
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # 10x faster here on these small tensors
+    try:
+        want = thomas._gauss_jordan(torch.as_tensor(c)[None],
+                                    torch.as_tensor(m)[None],
+                                    pivots)[0].numpy()
+    finally:
+        torch.set_num_threads(n_threads)
+    got, got_piv = _panel_gauss_jordan(c, m, owners=owners,
+                                       workspace=workspace, seed=b)
     assert got_piv == [int(p[0]) for p in pivots]
     if case in ("ties", "nan"):
         assert got_piv[0] == (6 if case == "nan" else 0)

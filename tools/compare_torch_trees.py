@@ -21,7 +21,15 @@ checkout, lets it build its kernels, and
   ``CentralizedObcaPlanner.solve_at`` (300 IP trips at most, as
   ``chip_smoke.py`` phase 11 gives it; each trip a replayed CUDA graph
   with two K1 launches) after a warm-up call: its wall, trips and wall per
-  trip, and K1's share of a trip (two launches at the timed K1 time).
+  trip, and K1's share of a trip (two launches at the timed K1 time);
+* with ``--big``: only K1 past the cluster kernel's reach, the 9-vehicle
+  consensus edge (1, 7, 405) in float64 and the 11-vehicle edge
+  (1, 7, 605) in float32 equilibrated, and the big kernel forced at
+  (1, 7, 320) float64 beside the cluster kernel there (2 calls captured as
+  one graph, replayed 5 times: a call takes up to seconds); then, once,
+  in the change's tree, the plain version and one ``torch.linalg.solve``
+  on the dense ``[S, T·B, T·B]`` matrix (the yardstick the port never
+  calls) at the same shapes, with ``chip_smoke.py``'s bound.
 
 Only entry points that every checkout of the port has are used, so the
 parent may be any earlier commit (with ``--centralized``, one from the
@@ -29,7 +37,7 @@ commit that first solved B = 108 on the card on), unpacked with
 ``git archive`` into a directory of its own.
 
 Usage: python3 tools/compare_torch_trees.py --parent DIR [--change DIR]
-           [--centralized] [--out PATH.json]
+           [--centralized | --big] [--out PATH.json]
 """
 import argparse
 import json
@@ -49,6 +57,46 @@ SLICE_STEPS = 6
 CENTRALIZED_CASES = (((1, 14, 108), "float64", False),
                      ((1, 14, 108), "float32", True))
 CEN_V4_IP_ITERS = 300
+# (shape, dtype name, equilibrate, kernel forced or None)
+BIG_CASES = (((1, 7, 405), "float64", False, None),
+             ((1, 7, 605), "float32", True, None),
+             ((1, 7, 320), "float64", False, "big"),
+             ((1, 7, 320), "float64", False, None))
+
+
+def big_worker(tree, yardsticks=False):
+    """K1 at BIG_CASES in ``tree``; ``yardsticks``: the plain version and the
+    library call instead, with the bound."""
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    import dlp_admm_torch  # noqa: F401  (sets the TF32 switches)
+    from dlp_admm_torch.solvers import thomas
+    rng = np.random.default_rng(0)
+    rec = {"tree": tree}
+    for (s, t, b), dt, eq, kernel in BIG_CASES:
+        dtype = getattr(torch, dt)
+        d, u, r = (torch.as_tensor(a, dtype=dtype, device="cuda") for a in
+                   chip_smoke.make_system(rng, s, t, b, "diag_dominant"))
+        key = f"{s}x{t}x{b} {dt}{' eq' if eq else ''}"
+        if yardsticks:
+            if kernel is not None:
+                continue
+            a, rr = chip_smoke.dense_system(d, u, r)
+            rec[key] = dict(
+                plain_ms=chip_smoke.graph_ms(
+                    lambda: thomas.block_thomas_plain(d, u, r, eq), reps=1),
+                library_ms=chip_smoke.time_ms(
+                    lambda: torch.linalg.solve(a, rr), 5),
+                **chip_smoke.bound(s, t, b, dtype, eq))
+            continue
+        plan = thomas.kernel_plan(s, t, b, dtype, eq, kernel)
+        rec[key + (f" forced {kernel}" if kernel else "")] = dict(
+            kernel=plan["kernel"], ms=chip_smoke.graph_ms(
+                lambda: thomas.launch_kernel(d, u, r, eq, kernel), reps=2))
+    print(json.dumps(rec), flush=True)
 
 
 def worker(tree, centralized=False):
@@ -152,9 +200,16 @@ def main():
     ap.add_argument("--centralized", action="store_true",
                     help="also time K1 at (1, 14, 108) and the 4-vehicle "
                          "centralized solve_at")
+    ap.add_argument("--big", action="store_true",
+                    help="only K1 past the cluster kernel's reach, and the "
+                         "plain version and the library call there")
     ap.add_argument("--out", default=None)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--yardsticks", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.worker and args.big:
+        return big_worker(os.path.abspath(args.worker), args.yardsticks)
     if args.worker:
         return worker(os.path.abspath(args.worker), args.centralized)
     if not args.parent:
@@ -163,23 +218,43 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     turns = []
-    for name in ("parent", "change", "change", "parent"):
+    flags = (["--centralized"] if args.centralized else []) + (
+        ["--big"] if args.big else [])
+
+    def turn(name, extra=()):
         tree = os.path.abspath(getattr(args, name))
         out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker", tree]
-            + (["--centralized"] if args.centralized else []),
-            capture_output=True, text=True, cwd=tree)
+            [sys.executable, os.path.abspath(__file__), "--worker", tree,
+             *flags, *extra], capture_output=True, text=True, cwd=tree)
         if out.returncode != 0:
-            raise RuntimeError(f"{name} ({tree}) failed:\n{out.stderr[-4000:]}")
+            raise RuntimeError(
+                f"{name} ({tree}) failed:\n{out.stderr[-4000:]}")
         rec = json.loads(out.stdout.strip().splitlines()[-1])
         rec["turn"] = name
-        turns.append(rec)
         print(json.dumps(rec), flush=True)
+        return rec
+
+    for name in ("parent", "change", "change", "parent"):
+        turns.append(turn(name))
 
     def mean(xs):
         return sum(xs) / len(xs)
 
     summary = {"nvidia_smi": smi}
+    if args.big:
+        for name in ("parent", "change"):
+            mine = [t for t in turns if t["turn"] == name]
+            summary[name] = {k: dict(v, ms=mean([t[k]["ms"] for t in mine]),
+                                     ms_turns=[t[k]["ms"] for t in mine])
+                             for k, v in mine[0].items() if k not in (
+                                 "tree", "turn")}
+        summary["yardsticks"] = turn("change", ["--yardsticks"])
+        print(json.dumps(summary), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(dict(turns=turns, summary=summary), f, indent=1)
+        print(smi)
+        return
     for name in ("parent", "change"):
         mine = [t for t in turns if t["turn"] == name]
         summary[name] = dict(

@@ -20,6 +20,16 @@ on the CPU through ``ConsensusObcaPlanner.run_scan(return_health=True)``, all
   45 is also the wide kernel's and which costs a third of the 4-vehicle
   step on the CPU), saved as ``tests/data/consensus_obca_v4_f64_ref.npz``.
   Its KKT widths (locals 33, edge 80) are the wide kernel's.
+* ``v9``: one consensus MPC step of 9 vehicles with ``tools/exp_obca_batch.py
+  v8``'s planner settings (horizon 8, ``min_dis`` 0.1, rho 100, local prox
+  700 x 1.5 up to 1e9, ``ip_iters=40``, ``ip_tol=1e-4``) in float64 with
+  the ADMM cap cut to 2, through ``ConsensusObcaPlanner.run``
+  (``states [2, 9, 5]``, ``iterations [1]``), and the same step from a
+  ``z_bar`` moved by 1e-12 (``moved_states``, ``moved_iterations``,
+  ``moved_state_err``, ``chaotic``: whether the moved step leaves the
+  unmoved one by more than 1e-6 or takes other ADMM iteration counts),
+  saved as ``tests/data/consensus_obca_v9_f64_ref.npz`` (about 2.5
+  minutes). Its edge KKT width is 405 (5V + 10 V(V-1)/2).
 
 * ``pi_admm``: ``bench.py``'s first workload (the pairwise PI-ADMM engine,
   16 vehicles overtaking in 8 lanes, horizon 30, per-step cap 60, whole-run
@@ -164,7 +174,7 @@ step its largest state distance from the committed fixture (``aladin``:
 its iterations, their total and the minimum distance).
 
 Usage: python tools/make_torch_fixture.py
-           [--profile f64|f32|v4|pi_admm|pi_admm_f32|batch|spmd|classic|
+           [--profile f64|f32|v4|v9|pi_admm|pi_admm_f32|batch|spmd|classic|
                       centralized|centralized_v4|bilevel|aladin|checkpoint|
                       mesh|options]
            [--steps N] [--out PATH] [--noise EPS --seed N]
@@ -213,7 +223,14 @@ PROFILES = dict(
                       rho=100.0),
             scfg=dict(ip_iters=40, ip_tol=1e-6),
             planner=dict(gate_pairs=True, gate_thres=12.0),
-            dtype="float64", steps=4, capped_admm_iters=2))
+            dtype="float64", steps=4, capped_admm_iters=2),
+    v9=dict(ocfg=dict(num_veh=9, horizon=8, min_dis=0.1, rho=100.0,
+                      max_admm_iters=2),
+            scfg=dict(ip_iters=40, ip_tol=1e-4),
+            planner=dict(local_prox=700.0, prox_growth=1.5,
+                         prox_tau_max=1.0e9),
+            dtype="float64", steps=1, chaos_noise=1e-12, chaos_seed=1,
+            chaos_tol=1e-6))
 
 
 # bench.py:55-107, the PI-ADMM workload of its first metric
@@ -380,7 +397,8 @@ def default_out(name):
     if name.startswith("centralized"):
         return os.path.join(ROOT, "tests", "data",
                             f"obca_{name}_ref.npz")
-    stem = {"v4": "v4_f64", "batch": "batch_f64"}.get(name, name)
+    stem = {"v4": "v4_f64", "v9": "v9_f64",
+            "batch": "batch_f64"}.get(name, name)
     return os.path.join(ROOT, "tests", "data",
                         f"consensus_obca_{stem}_ref.npz")
 
@@ -427,6 +445,39 @@ def write_v4(out, commit):
         iterations=np.asarray(its).tolist(),
         capped_iterations=np.asarray(capped_its).tolist(),
         v3_capped_iterations=np.asarray(v3_its).tolist(), commit=commit)))
+
+
+def write_v9(out, commit):
+    """The 9-vehicle step, and the same step from a ``z_bar`` moved by
+    ``chaos_noise``."""
+    prof = PROFILES["v9"]
+    t0 = time.perf_counter()
+    planner = make_planner("v9")
+    states, its, _, _ = planner.run(n_steps=prof["steps"])
+    bs0 = planner.create_bar_state()
+    eps = prof["chaos_noise"] * np.random.default_rng(
+        prof["chaos_seed"]).normal(size=bs0.z_bar.shape)
+    bs0 = bs0._replace(z_bar=bs0.z_bar + eps.astype(bs0.z_bar.dtype))
+    planner.create_bar_state = lambda: bs0
+    moved, moved_its, _, _ = planner.run(n_steps=prof["steps"])
+    states, moved = np.asarray(states), np.asarray(moved)
+    err = float(np.abs(moved - states).max())
+    chaotic = bool(err > prof["chaos_tol"] or not np.array_equal(
+        np.asarray(its), np.asarray(moved_its)))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(
+        out, states=states, iterations=np.asarray(its),
+        moved_states=moved, moved_iterations=np.asarray(moved_its),
+        moved_state_err=np.asarray(err), chaotic=np.asarray(chaotic),
+        profile=np.asarray(json.dumps(prof, sort_keys=True)),
+        commit=np.asarray(commit))
+    print(json.dumps(dict(
+        out=os.path.relpath(out, ROOT), profile="v9",
+        seconds=round(time.perf_counter() - t0, 1),
+        iterations=np.asarray(its).tolist(),
+        moved_iterations=np.asarray(moved_its).tolist(),
+        moved_state_err=err, chaotic=chaotic,
+        finite=bool(np.all(np.isfinite(states))), commit=commit)))
 
 
 def bench_engine(dtype):
@@ -1263,6 +1314,8 @@ def main():
                             capture_output=True, text=True).stdout.strip()
     if args.profile == "v4":
         return write_v4(args.out, commit)
+    if args.profile == "v9":
+        return write_v9(args.out, commit)
     if args.profile == "batch":
         return write_batch(args.out, commit, args.noise, args.seed)
     if args.profile == "spmd":

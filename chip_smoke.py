@@ -386,6 +386,7 @@ PATH_SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (16, 7, 20), (16, 7, 19),
 TIMED_SYNTH_SHAPES = ((1, 7, 605), (2, 7, 264))
 # the run blocks phase 7 times: those of the kernels line and the batch's
 TIMED_RUN_BLOCKS = (("slice float64", (2, 7, 19)),
+                    ("slice float32", (2, 7, 19)),
                     ("multi-vehicle V=4 float64", (1, 7, 80)),
                     ("centralized float64", (1, 14, 34)),
                     ("centralized V=4 float64", (1, 14, 108)),
@@ -405,6 +406,22 @@ BATCH_F32_SMOKE_STEPS = 2
 # accelerator): quality only
 JAX_BATCH_QUALITY = dict(res_ok="288/320", min_distance_m=3.53,
                          gap_median=0.00844)
+# JAX's float32 batch of that run on the CPU (tools/make_torch_fixture.py
+# --profile batch_f32, about 20 minutes), printed beside the port's
+JAX_BATCH_F32_CPU = dict(res_ok="296/320", steps_at_cap=26,
+                         min_distance_m=3.638, gap_median=0.00825)
+# JAX's float32 flagship on the CPU from the unmoved start and from seeds
+# 1-10 with 1e-7 normal noise on z_bar (tools/make_torch_fixture.py
+# --profile f32 [--noise 1e-7 --seed N]), printed beside --full's one
+# float32 run: one run of the chaotic conflict window says little, so its
+# numbers are set in JAX's spread, not gated on it (PERF.md §6)
+JAX_F32_CPU_RUNS = dict(
+    res_ok=(39, 40, 41, 32, 34, 39, 39, 40, 40, 39, 41),
+    steps_at_cap=(3, 2, 1, 10, 8, 3, 4, 2, 2, 3, 1),
+    min_distance_m=(4.0504, 3.7607, 4.2056, 3.7637, 3.2687, 4.3209, 3.3812,
+                    4.2946, 4.0095, 3.6396, 4.2917),
+    health=(0.4286, 0.4643, 0.4643, 0.4762, 0.4167, 0.4643, 0.5119, 0.2738,
+            0.4405, 0.4048, 0.3452))
 # tests/test_parity_oracle.py:100-140, the centralized side's gates
 ORACLE_MARGIN = 0.8          # footprint gap >= 0.8 min_dis
 ORACLE_MIN_CONVERGED = 24    # of 30 steps
@@ -1259,6 +1276,9 @@ def smoke(args, records):
                          res.extras["planner"].block_solves, ("warp",))
             records["full"][name] = dict(full_record(res, refs[dtype], name),
                                          launches=counts)
+            if dtype == torch.float32:
+                records["full"][name]["beside_jax_cpu"] = beside_jax_f32(
+                    records["full"][name])
             dump(args.out, records)    # kept for diagnosis if a gate fails
         failed = {name: [g for g, ok in rec["gates"].items() if not ok]
                   for name, rec in records["full"].items()}
@@ -1279,7 +1299,8 @@ def smoke(args, records):
         raise RuntimeError("; ".join(failures))
 
     kernels = {"kernels": [
-        kernel_entry("warp", real, paths, "slice float64", (2, 7, 19)),
+        kernel_entry("warp", real, paths, "slice float64", (2, 7, 19),
+                     at_shapes=(("slice float32", (2, 7, 19)),)),
         kernel_entry("wide", real, paths, "multi-vehicle V=4 float64",
                      (1, 7, 80), at_shapes=(
                          ("centralized float64", (1, 14, 34)),)),
@@ -1567,6 +1588,8 @@ def full_batch(thomas, ip_staged, records, smi, out_path):
         nums.update(launches=counts, block_solves=pl.block_solves,
                     iterations=res[1].tolist(),
                     jax_quality=JAX_BATCH_QUALITY,
+                    jax_cpu=(JAX_BATCH_F32_CPU if dtype == torch.float32
+                             else None),
                     single_scenario_same_card=single.get(str(dtype)[6:])
                     or records["slice " + str(dtype)[6:]]["summary"],
                     one_lane_alone=records["batch"]["one_lane"])
@@ -3029,6 +3052,27 @@ def polygon_gap(p, q):
         return 0.0
     return min(point_seg(x, b[i], b[(i + 1) % len(b)])
                for a, b in ((p, q), (q, p)) for x in a for i in range(len(b)))
+
+
+def beside_jax_f32(rec):
+    """The float32 run's steps at the ADMM cap, NLP health and minimum
+    centre distance beside JAX's 11 CPU runs (``JAX_F32_CPU_RUNS``);
+    printed, not gated."""
+    cap = flagship_profile(torch.float32)["ocfg"].max_admm_iters
+    jx = JAX_F32_CPU_RUNS
+    out = dict(
+        steps_at_cap=int(sum(i >= cap for i in rec["iterations"])),
+        jax_steps_at_cap=[min(jx["steps_at_cap"]), max(jx["steps_at_cap"])],
+        health=rec["health"], jax_health_unmoved=jx["health"][0],
+        jax_health=[min(jx["health"]), max(jx["health"])],
+        min_distance_m=rec["min_distance_m"],
+        jax_min_distance_m=[min(jx["min_distance_m"]),
+                            max(jx["min_distance_m"])],
+        res_ok=rec["res_ok"], jax_res_ok=[min(jx["res_ok"]),
+                                          max(jx["res_ok"])])
+    log("full float32 beside JAX's 11 CPU runs (unmoved, seeds 1-10 at "
+        "1e-7): " + json.dumps(out))
+    return out
 
 
 def full_record(res, ref, name):

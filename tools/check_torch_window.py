@@ -26,6 +26,15 @@ conflict window is chaotic. Started from the same carry, one step can:
   outputs kept, and names the first operator whose outputs differ;
 * ``--eager N``: the first N of the steps again through the eager IP loop
   on the same device (on the card: is the graphed loop the eager one?);
+* ``--record PATH``: each of the steps once, its ADMM iterations,
+  residuals, NLP health and KKT, consensus gap, next state and the planned
+  states of the next carry (``local_x``) written as ``port_<k>_<field>``
+  into ``PATH`` (``.npz``), the format of ``tools/jax_window_steps.py``;
+  ``tools/compare_window_steps.py`` sets them beside JAX's steps from the
+  same carries. ``--plain`` routes the staged solver's KKT solves to the
+  plain version of the kernels on any device (a stand-in at this tool's
+  level, as ``chip_smoke.CaptureFirst`` is), to tell the kernel's part
+  from the rest of the card's arithmetic;
 * ``--kkt-step K`` (CUDA): every ``--every``-th KKT system of step K's first
   ``--kkt-iters`` ADMM iterations, all IP trips included (eager loop),
   solved by the warp kernel, the wide kernel and the plain version:
@@ -38,7 +47,8 @@ and else to the committed ``tests/data/consensus_obca_f32_carry14.npz``
 (step 14 only).
 
 Usage: python3 tools/check_torch_window.py [--device cuda|cpu]
-           [--carries PATH.npz] [--steps K,K,...] [--slice] [--repeat N]
+           [--carries PATH.npz] [--steps K,K,...|A-B] [--slice] [--repeat N]
+           [--record PATH.npz [--plain]]
            [--fresh K] [--poison] [--deterministic] [--json PATH]
            [--graph-check N] [--eager N]
            [--kkt-step K --kkt-iters N --every M]
@@ -277,10 +287,54 @@ def run_step(pl, data, k, dev, label):
     out = pl._mpc_step(st, bs, k)
     if dev == "cuda":
         torch.cuda.synchronize()
-    print(f"{label} step {k}: ADMM iterations {out[2]} (JAX "
-          f"{int(data['iterations'][k])}), primal {float(out[3]):.4f}, dual "
-          f"{float(out[4]):.4f}, nlp_ok {out[6].tolist()}, nlp_kkt "
+    print(f"{label} step {k}: ADMM iterations {out[2]} (the carries' "
+          f"run: {int(data['iterations'][k])}), primal {float(out[3]):.4f}, "
+          f"dual {float(out[4]):.4f}, nlp_ok {out[6].tolist()}, nlp_kkt "
           f"{out[7].tolist()}, {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+RECORD_FIELDS = ("iterations", "primal", "dual", "nlp_ok", "nlp_kkt", "gap",
+                 "next_state", "local_x")
+
+
+def record_steps(data, steps, dev, path, plain=False):
+    """Each step once from its carry; writes ``port_<k>_<field>``."""
+    keep = ip_staged.block_thomas_solve
+    if plain:
+        ip_staged.block_thomas_solve = lambda d, u, r: \
+            thomas.block_thomas_plain(d, u, r, r.dtype != torch.float64)
+    arrays = {}
+    try:
+        pl = ConsensusObcaPlanner(device=dev,
+                                  **chip_smoke.flagship_profile(torch.float32))
+        for k in steps:
+            if f"{k}_state" not in data.files:
+                continue
+            st, bs, it, pr, du, _cv, ok, kkt, gap = run_step(
+                pl, data, k, dev, "plain" if plain else "kernel")
+            rec = dict(iterations=np.asarray(int(it)), primal=pr, dual=du,
+                       nlp_ok=ok, nlp_kkt=kkt, gap=gap, next_state=st,
+                       local_x=bs.local_x)
+            for f in RECORD_FIELDS:
+                arrays[f"port_{k}_{f}"] = np.asarray(
+                    rec[f].cpu().numpy() if torch.is_tensor(rec[f])
+                    else rec[f])
+            np.savez_compressed(path, device=np.asarray(dev),
+                                plain=np.asarray(plain), **arrays)
+    finally:
+        ip_staged.block_thomas_solve = keep
+
+
+def step_list(text):
+    """``"10-30"`` or ``"14,17,20"`` -> step indices in order."""
+    out = []
+    for part in text.split(","):
+        if "-" in part:
+            a, b = part.split("-")
+            out += range(int(a), int(b) + 1)
+        elif part:
+            out.append(int(part))
     return out
 
 
@@ -422,10 +476,17 @@ def main():
     ap.add_argument("--kkt-step", type=int, default=None)
     ap.add_argument("--kkt-iters", type=int, default=45)
     ap.add_argument("--every", type=int, default=30)
+    ap.add_argument("--record", default=None)
+    ap.add_argument("--plain", action="store_true")
     args = ap.parse_args()
     dev = args.device
     data = np.load(args.carries or default_carries())
-    args.step_list = [int(s) for s in args.steps.split(",") if s]
+    args.step_list = step_list(args.steps)
+    if args.record:
+        record_steps(data, args.step_list, dev, args.record, args.plain)
+        if dev == "cuda":
+            print(chip_smoke.nvidia_smi())
+        return
     if args.deterministic:
         torch.use_deterministic_algorithms(True)
     if args.repeat:

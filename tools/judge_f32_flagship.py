@@ -1,0 +1,143 @@
+"""Judge the port's float32 flagship runs against JAX's over shared starts.
+
+The 42-step float32 consensus-OBCA run is chaotic in its conflict window,
+so one run says little: a rounding-level change of the start moves res_ok
+by several steps in JAX itself. This tool sets two groups of runs from the
+same starts side by side and applies the rule of PERF.md §6: a side
+is lower than JAX if a one-sided Mann-Whitney test gives p < 0.05 on res_ok
+or on the minimum centre distance.
+
+Inputs:
+
+* ``--port PATH.json ...``: records of ``tools/perturbed_torch_flagship.py
+  --out`` (on the card or, with ``--device cpu``, on the CPU);
+* ``--jax PATH.npz ...``: JAX runs written by ``tools/make_torch_fixture.py
+  --profile f32 [--noise 1e-7 --seed N] --out PATH.npz``; the unmoved JAX
+  run is the committed ``tests/data/consensus_obca_f32_ref.npz``.
+
+Prints a table row per run (res_ok, steps at the ADMM cap, minimum centre
+distance, minimum footprint gap, NLP health, median and maximum consensus
+gap), each side's median, and the two p-values; ``--json`` keeps them.
+Plain numpy and scipy: runs on the CPU.
+
+Usage: python3 tools/judge_f32_flagship.py --port A.json [B.json ...]
+           --jax X.npz [Y.npz ...] [--name card] [--json PATH]
+"""
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+from dlp_admm_torch.ops.geometry import vehicle_vertices  # noqa: E402
+
+ADMM_CAP = 50
+RES_TOL = 0.011          # bench.py:224
+ALPHA = 0.05
+COLUMNS = ("res_ok", "steps_at_cap", "min_distance_m", "min_footprint_gap_m",
+           "health", "gap_median", "gap_max")
+
+
+def footprint_gap(states):
+    """The smallest distance between the two vehicles' footprints over a
+    run's states ``[n+1, 2, 5]``."""
+    corners = vehicle_vertices(torch.as_tensor(
+        np.asarray(states), dtype=torch.float64)).numpy()
+    return float(min(chip_smoke.polygon_gap(c[0], c[1]) for c in corners))
+
+
+def jax_record(path):
+    """One JAX run's row from its ``.npz``."""
+    d = np.load(path)
+    its = np.asarray(d["iterations"])
+    p = np.asarray(d["states"])[..., :2]
+    res_ok = (np.asarray(d["primal"]) <= RES_TOL) & (
+        np.asarray(d["dual"]) <= RES_TOL)
+    label = os.path.splitext(os.path.basename(path))[0]
+    return dict(label=label, res_ok=int(res_ok.sum()),
+                steps_at_cap=int((its >= ADMM_CAP).sum()),
+                min_distance_m=float(np.linalg.norm(
+                    p[:, 0] - p[:, 1], axis=-1).min()),
+                min_footprint_gap_m=footprint_gap(d["states"]),
+                health=float(np.mean(np.asarray(d["nlp_ok"]) == 1.0)),
+                gap_median=float(np.median(d["gaps"])),
+                gap_max=float(np.max(d["gaps"])))
+
+
+def port_records(path):
+    """The rows of one ``perturbed_torch_flagship.py --out`` file."""
+    with open(path) as f:
+        data = json.load(f)
+    rows = []
+    for r in data["runs"]:
+        its = r["iterations"]
+        rows.append(dict(
+            label=r.get("label") or f"seed{r['seed']}",
+            res_ok=r["res_ok"],
+            steps_at_cap=r.get("steps_at_cap",
+                               int(sum(i >= ADMM_CAP for i in its))),
+            **{k: r[k] for k in COLUMNS[2:]}))
+    return rows, data.get("nvidia_smi")
+
+
+def mann_whitney_less(x, y):
+    """One-sided p that ``x`` is lower than ``y`` (ties corrected)."""
+    from scipy.stats import mannwhitneyu
+    return float(mannwhitneyu(x, y, alternative="less",
+                              method="asymptotic").pvalue)
+
+
+def judge(port, jax_rows):
+    """The rule: p-values on res_ok and minimum centre distance, and
+    whether either is below ``ALPHA``."""
+    p = {k: mann_whitney_less([r[k] for r in port], [r[k] for r in jax_rows])
+         for k in ("res_ok", "min_distance_m")}
+    return dict(p_res_ok=p["res_ok"], p_min_distance=p["min_distance_m"],
+                fault=bool(min(p.values()) < ALPHA))
+
+
+def table(name, rows):
+    print(f"{name}: " + " | ".join(("label",) + COLUMNS))
+    for r in rows:
+        print("  " + " | ".join([r["label"]] + [
+            f"{r[k]:.4g}" if isinstance(r[k], float) else str(r[k])
+            for k in COLUMNS]))
+    med = {k: float(np.median([r[k] for r in rows])) for k in COLUMNS}
+    print("  median: " + ", ".join(f"{k} {v:.4g}" for k, v in med.items()))
+    return med
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--port", nargs="+", required=True)
+    ap.add_argument("--jax", nargs="+", required=True)
+    ap.add_argument("--name", default="port")
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args()
+    port, smi = [], set()
+    for path in args.port:
+        rows, s = port_records(path)
+        port += rows
+        smi.add(s)
+    jax_rows = [jax_record(p) for p in args.jax]
+    out = dict(port=port, jax=jax_rows, device=sorted(x for x in smi if x),
+               port_median=table(args.name, port),
+               jax_median=table("jax (CPU)", jax_rows))
+    out.update(judge(port, jax_rows))
+    print(json.dumps(dict(n_port=len(port), n_jax=len(jax_rows),
+                          p_res_ok=out["p_res_ok"],
+                          p_min_distance=out["p_min_distance"],
+                          fault=out["fault"], device=out["device"])))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -52,6 +52,11 @@ on the CPU through ``ConsensusObcaPlanner.run_scan(return_health=True)``, all
   moved by 1e-12 (``BATCH["chaos_seeds"]``) leaves it by more than 1e-6 or
   takes other ADMM iteration counts (the number of steps where it never
   does);
+* ``batch_f32``: the same workload whole in the float32 profile (16 lanes
+  x 20 steps, JAX's 64-bit mode off), a tool run that saves nothing unless
+  ``--out`` is given and prints res_ok (of 320), the steps at the ADMM cap,
+  the smallest centre distance and the median consensus gap: the CPU
+  record beside the port's ``chip_smoke.py --full-batch``;
 * ``spmd``: the five cases of ``tests/test_consensus_spmd.py``, the
   planner modes the batched step honours and a float32 case, each one JAX
   ``make_consensus_spmd_step`` call on a 1x1 mesh (``SPMD_CASES``), and for
@@ -174,7 +179,8 @@ step its largest state distance from the committed fixture (``aladin``:
 its iterations, their total and the minimum distance).
 
 Usage: python tools/make_torch_fixture.py
-           [--profile f64|f32|v4|v9|pi_admm|pi_admm_f32|batch|spmd|classic|
+           [--profile f64|f32|v4|v9|pi_admm|pi_admm_f32|batch|batch_f32|
+                      spmd|classic|
                       centralized|centralized_v4|bilevel|aladin|checkpoint|
                       mesh|options]
            [--steps N] [--out PATH] [--noise EPS --seed N]
@@ -248,6 +254,7 @@ PI_ADMM_LANES = dict(pi_admm=2, pi_admm_f32=32)
 # bench.py:239-283, the scenario-batched workload of its third metric
 BATCH = dict(n_scen=16, jitter=0.25, seed=0, steps=6, planner=PROFILE,
              chaos_noise=1e-12, chaos_seeds=(1, 2), chaos_tol=1e-6)
+BATCH_F32_STEPS = 20     # bench.py:248
 
 # tests/test_consensus_spmd.py's cases (its _setup: ADMM cap 2, ip_iters 5,
 # rho 100, dense locals and the joint edge unless named), the modes of the
@@ -810,6 +817,42 @@ def write_batch(out, commit, noise=0.0, seed=0):
         gap_median=float(np.median(gaps)), commit=commit)))
 
 
+def write_batch_f32(out, commit, steps=None):
+    """JAX's float32 ``run_scenario_batch`` of bench.py's third metric,
+    whole (16 lanes x 2 vehicles x 20 steps, ``bench.py:248-283``), on the
+    CPU: the record ``chip_smoke.py --full-batch`` prints beside the port's
+    float32 batch (``JAX_BATCH_F32_CPU``). Prints res_ok against bench.py's
+    gate (0.01 residuals, 272 of 320), the steps at the ADMM cap, the
+    smallest centre distance and the median consensus gap; ``--out`` keeps
+    the run."""
+    from dlp_admm_tpu.parallel.consensus_spmd import run_scenario_batch
+    steps = steps or BATCH_F32_STEPS
+    pl = make_planner("f32")
+    inits = batch_starts(pl)
+    t0 = time.perf_counter()
+    states, its, prs, dus, cvs, gaps = [np.asarray(x) for x in
+                                        run_scenario_batch(pl, inits, steps)]
+    secs = time.perf_counter() - t0
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez_compressed(
+            out, states=states, iterations=its, primal=prs, dual=dus,
+            converged=cvs, gaps=gaps, profile=np.asarray(json.dumps(
+                dict(BATCH, planner=PROFILES["f32"], steps=steps),
+                sort_keys=True)), commit=np.asarray(commit))
+    p = states[..., :2]
+    print(json.dumps(dict(
+        out=os.path.relpath(out, ROOT) if out else None, profile="batch_f32",
+        steps=steps, lanes=int(its.size), seconds=round(secs, 1),
+        res_ok=int(((prs <= 0.01) & (dus <= 0.01)).sum()),
+        steps_at_cap=int((its >= PROFILES["f32"]["ocfg"][
+            "max_admm_iters"]).sum()),
+        min_distance_m=float(np.linalg.norm(p[:, :, 0] - p[:, :, 1],
+                                            axis=-1).min()),
+        gap_median=float(np.median(gaps)), iterations=its.tolist(),
+        commit=commit)))
+
+
 def _parting(states, its, ref_states, ref_its, tol, n):
     """The first step at which a run is more than ``tol`` from the
     reference run or takes other iteration counts (``n`` where never)."""
@@ -1290,10 +1333,19 @@ def write_checkpoint(out, commit):
         commit=commit)))
 
 
+def moved_bar_state(bs, noise, seed):
+    """The start ``bs`` with normal noise of size ``noise`` on ``z_bar``,
+    drawn from ``default_rng(seed)`` in float64 and rounded to the state's
+    type (``tools/perturbed_torch_flagship.py`` moves the port's so)."""
+    eps = noise * np.random.default_rng(seed).normal(size=bs.z_bar.shape)
+    return bs._replace(z_bar=bs.z_bar + eps.astype(bs.z_bar.dtype))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", choices=sorted(PROFILES) + sorted(
-        PI_ADMM_LANES) + ["batch", "spmd", "classic", "centralized",
+        PI_ADMM_LANES) + ["batch", "batch_f32", "spmd", "classic",
+                          "centralized",
                           "centralized_v4", "bilevel", "aladin",
                           "checkpoint", "mesh", "options"],
                     default="f64")
@@ -1306,10 +1358,10 @@ def main():
                     help="size of the normal noise added to the starting z_bar")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    if not args.noise:
+    if not args.noise and args.profile != "batch_f32":
         args.out = args.out or default_out(args.profile)
     jax.config.update("jax_enable_x64",
-                      args.profile not in ("f32", "pi_admm_f32"))
+                      args.profile not in ("f32", "pi_admm_f32", "batch_f32"))
     commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
                             capture_output=True, text=True).stdout.strip()
     if args.profile == "v4":
@@ -1318,6 +1370,8 @@ def main():
         return write_v9(args.out, commit)
     if args.profile == "batch":
         return write_batch(args.out, commit, args.noise, args.seed)
+    if args.profile == "batch_f32":
+        return write_batch_f32(args.out, commit, args.steps)
     if args.profile == "spmd":
         return write_spmd(args.out, commit)
     if args.profile == "classic":
@@ -1342,10 +1396,8 @@ def main():
     t0 = time.perf_counter()
     planner = make_planner(args.profile)
     if args.noise:
-        bs0 = planner.create_bar_state()
-        eps = args.noise * np.random.default_rng(args.seed).normal(
-            size=bs0.z_bar.shape)
-        bs0 = bs0._replace(z_bar=bs0.z_bar + eps.astype(bs0.z_bar.dtype))
+        bs0 = moved_bar_state(planner.create_bar_state(), args.noise,
+                              args.seed)
         planner.create_bar_state = lambda: bs0
     states, its, prs, dus, _cvs, oks, kkts, gaps = planner.run_scan(
         n_steps=args.steps, return_health=True)

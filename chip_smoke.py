@@ -61,7 +61,13 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
 7. the kernels against their plain version on the KKT blocks those runs
    gave them (by solution and by backward error), the kernels line's
    blocks and the float64 batch's timed as in 3, and the clock64() split
-   of both kernels' profiling builds on them;
+   of both kernels' profiling builds on them; then the committed float32
+   KKT systems of the card's flagship runs (``tests/data/
+   kkt_f32_sample.npz``, ``tools/kkt_corpus.py``), each solved by K1 and
+   by its plain version as the staged solver solves it (two refinements,
+   the residual verification): their ``bad`` counts and median forward
+   errors beside JAX's stored ones; fails if K1 rejects more of them than
+   its plain version with an exact McNemar p < 0.01;
 8. ``--full``: all 42 steps of both profiles (and the whole runs of
    phases 13 and 14). The run fails on the gates
    that hold whichever branch the chaotic conflict window takes (42 steps,
@@ -240,6 +246,7 @@ Usage: python3 chip_smoke.py [--full] [--full-batch] [--out PATH.json]
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -268,6 +275,8 @@ FIXTURE_BILEVEL = os.path.join(DATA, "bilevel_ref.npz")
 FIXTURE_ALADIN = os.path.join(DATA, "aladin_ref.npz")
 FIXTURE_OPTIONS = os.path.join(DATA, "obca_options_ref.npz")
 FIXTURE_V9 = os.path.join(DATA, "consensus_obca_v9_f64_ref.npz")
+# float32 KKT systems of the card's flagship runs (tools/kkt_corpus.py)
+FIXTURE_KKT = os.path.join(DATA, "kkt_f32_sample.npz")
 RANK_SCRIPT = os.path.join(ROOT, "tools", "multihost_smoke_torch.py")
 SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (256, 7, 19))   # B <= 32
 # the batched driver's edge solves (its locals are (32, 7, 19) above), and a
@@ -340,6 +349,13 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # run records beside the block, and the plain version 0.030). Both measures
 # are printed for every block.
 ROWWISE_PATHS = ("centralized float64", "centralized V=4 float64")
+# the staged solver's float32 use of K1 (ip_staged.py): two refinements, and
+# a solve whose tridiagonal residual passes 1e-4 (1 + max|rhs|) is rejected
+IP_REFINE_F32, IP_RES_TOL = 2, 1e-4
+# phase 7's committed KKT systems: the kernel loses to its plain version
+# there if it rejects more of them with an exact McNemar p below this (the
+# rule of tools/kkt_corpus.py)
+KKT_SAMPLE_ALPHA = 0.01
 RUN_TOL = {torch.float64: 1e-10, torch.float32: 5e-3}
 STATE_TOL = 1e-6            # port vs JAX fixture, float64 states
 # IP trips of the centralized solve_at with 4 vehicles: JAX converges in 109
@@ -679,6 +695,106 @@ def backward_error(diag, upper, rhs, x):
     return (float((res / (a.abs() @ xs.abs() + r.abs()).clamp(
                 min=1e-300)).max()),
             float((res / (scale + r.abs()).clamp(min=1e-300)).max()))
+
+
+def tridiag_residual(d, u, r, vec):
+    """``ip_staged.py``'s ``tridiag_residual`` of ``vec`` for the system
+    ``d [S, T, B, B]``, ``u [S, T, B, B]``, ``r [S, T, B]``, op for op."""
+    n_s, _, bb = r.shape
+    zeros = r.new_zeros
+    u_prev = torch.cat([zeros(n_s, 1, bb, bb), u[:, :-1]], dim=1)
+    nxt = torch.cat([vec[:, 1:], zeros(n_s, 1, bb)], dim=1)
+    prv = torch.cat([zeros(n_s, 1, bb), vec[:, :-1]], dim=1)
+    return (torch.einsum('stij,stj->sti', d, vec)
+            + torch.einsum('stij,stj->sti', u, nxt)
+            + torch.einsum('stji,stj->sti', u_prev, prv) - r)
+
+
+def ip_verify(ip_staged, d, u, r, sol):
+    """The staged solver's solve verification of ``sol``: ``(bad, scaled
+    residual)`` per lane, ``max|lin_res| / (1 + max|rhs|)``."""
+    top = ip_staged._amax(r.abs())
+    res = ip_staged._amax(tridiag_residual(d, u, r, sol).abs())
+    bad = torch.logical_or(~torch.isfinite(sol).all(dim=2).all(dim=1),
+                           res > IP_RES_TOL * (1.0 + top))
+    return bad, res / (1.0 + top)
+
+
+def ip_solve(ip_staged, solve, d, u, r):
+    """``solve`` used as the staged solver uses its block solve in float32:
+    one solve, two refinements, the verification. Returns the solution
+    before a rejected one is zeroed, ``bad`` and the scaled residual."""
+    sol = solve(d, u, r)
+    for _ in range(IP_REFINE_F32):
+        sol = sol - solve(d, u, tridiag_residual(d, u, r, sol))
+    return (sol,) + ip_verify(ip_staged, d, u, r, sol)
+
+
+def forward_error(x, x_true):
+    """``max|x - x*| / max|x*|`` per system, in float64."""
+    x_true = torch.as_tensor(x_true, dtype=torch.float64, device=x.device)
+    err = (x.double() - x_true).abs().amax((1, 2)) / x_true.abs().amax(
+        (1, 2)).clamp(min=1e-300)
+    return torch.nan_to_num(err, nan=float("inf"))
+
+
+def mcnemar_p(a_only, b_only):
+    """Exact two-sided McNemar p on the discordant pairs of two paired
+    flags (the binomial at 1/2, the smaller tail doubled)."""
+    n = a_only + b_only
+    tail = sum(math.comb(n, i) for i in range(min(a_only, b_only) + 1))
+    return min(1.0, 2.0 * tail / 2.0 ** n)
+
+
+def kkt_sample(thomas, ip_staged, smi):
+    """The committed float32 KKT systems of the card's flagship runs where
+    K1's and its plain version's errors differ most from JAX's
+    (``tools/kkt_corpus.py report --sample``): the kernel and the plain
+    version, each as the staged solver uses it, beside the ``bad`` flags
+    and forward errors stored with them (JAX's computed on the CPU, the
+    card arms' in the corpus's own solves). Fails if the kernel loses to
+    its plain version by the corpus's rule on ``bad``: it rejects more of
+    them, with an exact McNemar p below KKT_SAMPLE_ALPHA. On these systems
+    a rejection is decided by rounding in the verification's residual (on
+    an H100 the same lanes gave K1 196 and the plain version 200 in the
+    corpus's batches, 201 and 198 in this phase's), so a bare count is a
+    coin flip between two arms the corpus shows equal."""
+    z = np.load(FIXTURE_KKT)
+    fams = sorted({k.split("_")[0] for k in z.files if k.endswith("_rhs")})
+    out, flags = dict(nvidia_smi=smi), {}
+    for arm, solve in (("kernel", ip_staged.block_thomas_solve),
+                       ("plain", lambda d, u, r: thomas.block_thomas_plain(
+                           d, u, r, True))):
+        bad, err = [], []
+        for f in fams:
+            d, u, r = (torch.as_tensor(z[f"{f}_{k}"], device=DEVICE)
+                       for k in ("d", "u", "rhs"))
+            sol, b, _ = ip_solve(ip_staged, solve, d, u, r)
+            bad.append(b.cpu())
+            err.append(forward_error(sol, z[f"{f}_truth"]).cpu())
+        flags[arm] = torch.cat(bad)
+        err = torch.cat(err)
+        out[arm] = dict(systems=int(err.numel()), bad=int(flags[arm].sum()),
+                        err_median=float(err.median()))
+    k_only = int((flags["kernel"] & ~flags["plain"]).sum())
+    p_only = int((flags["plain"] & ~flags["kernel"]).sum())
+    out["kernel_vs_plain"] = dict(kernel_only_bad=k_only,
+                                  plain_only_bad=p_only,
+                                  mcnemar_p=mcnemar_p(k_only, p_only))
+    for arm in map(str, z["arms"]):      # as tools/kkt_corpus.py solved them
+        bad = np.concatenate([z[f"{f}_{arm}_bad"] for f in fams])
+        err = np.concatenate([z[f"{f}_{arm}_err"] for f in fams])
+        out["stored_" + arm] = dict(bad=int(bad.sum()),
+                                    err_median=float(np.median(err)))
+    log("kkt sample: " + json.dumps(out))
+    if k_only > p_only and out["kernel_vs_plain"]["mcnemar_p"] < \
+            KKT_SAMPLE_ALPHA:
+        raise RuntimeError(f"kkt sample: the kernel rejects "
+                           f"{out['kernel']['bad']} systems, its plain "
+                           f"version {out['plain']['bad']} ({k_only} / "
+                           f"{p_only} alone, McNemar p "
+                           f"{out['kernel_vs_plain']['mcnemar_p']:.3g})")
+    return out
 
 
 def compare(thomas, diag, upper, rhs, label, equilibrate=False, kernel=None,
@@ -1233,6 +1349,7 @@ def smoke(args, records):
                     timed=(name, key) in TIMED_RUN_BLOCKS, run_block=True,
                     rowwise=name in ROWWISE_PATHS), path=name))
         records["clock_split"] = clock_split(thomas, systems)
+        records["kkt_sample"] = kkt_sample(thomas, ip_staged, smi)
 
     # -- 9. the PI-ADMM path (bench.py's first metric) -----------------
     with phase(records, "9 PI-ADMM"):

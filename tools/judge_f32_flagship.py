@@ -13,7 +13,13 @@ Inputs:
   --out`` (on the card or, with ``--device cpu``, on the CPU);
 * ``--jax PATH.npz ...``: JAX runs written by ``tools/make_torch_fixture.py
   --profile f32 [--noise 1e-7 --seed N] --out PATH.npz``; the unmoved JAX
-  run is the committed ``tests/data/consensus_obca_f32_ref.npz``.
+  run is the committed ``tests/data/consensus_obca_f32_ref.npz``;
+* or ``--shared-starts``: the 17 shared starts of ``PERF.md`` §6 (the
+  unmoved start and seeds 1-16 at 1e-7), JAX's float32 runs on the CPU and
+  the port's on the card (NVIDIA H100 80GB HBM3, 700.00 W), as recorded
+  there: the given runs are judged against JAX's on the first 11 and on
+  all 17, and set against the card's by a two-sided test (is a stand-in's
+  side apart from the card's?).
 
 Prints a table row per run (res_ok, steps at the ADMM cap, minimum centre
 distance, minimum footprint gap, NLP health, median and maximum consensus
@@ -21,7 +27,8 @@ gap), each side's median, and the two p-values; ``--json`` keeps them.
 Plain numpy and scipy: runs on the CPU.
 
 Usage: python3 tools/judge_f32_flagship.py --port A.json [B.json ...]
-           --jax X.npz [Y.npz ...] [--name card] [--json PATH]
+           (--jax X.npz [Y.npz ...] | --shared-starts) [--name card]
+           [--json PATH]
 """
 import argparse
 import json
@@ -42,6 +49,20 @@ RES_TOL = 0.011          # bench.py:224
 ALPHA = 0.05
 COLUMNS = ("res_ok", "steps_at_cap", "min_distance_m", "min_footprint_gap_m",
            "health", "gap_median", "gap_max")
+# the 17 shared starts of PERF.md §6 (unmoved, seeds 1-16 at 1e-7): res_ok
+# and minimum centre distance per start, JAX on the CPU and the card
+SHARED_LABELS = ("unmoved",) + tuple(f"seed{i}" for i in range(1, 17))
+SHARED_STARTS = dict(
+    jax=dict(res_ok=(39, 40, 41, 32, 34, 39, 39, 40, 40, 39, 41, 35, 37, 41,
+                     41, 33, 41),
+             min_distance_m=(4.050, 3.761, 4.206, 3.764, 3.269, 4.321, 3.381,
+                             4.295, 4.010, 3.640, 4.292, 3.231, 3.323, 3.398,
+                             3.355, 2.937, 3.728)),
+    card=dict(res_ok=(33, 37, 38, 40, 39, 33, 38, 37, 34, 37, 39, 42, 39, 37,
+                      41, 34, 36),
+              min_distance_m=(3.128, 4.151, 4.171, 3.992, 4.013, 3.111,
+                              3.960, 2.926, 3.068, 3.686, 3.273, 2.618,
+                              4.079, 3.751, 4.110, 2.940, 3.530)))
 
 
 def footprint_gap(states):
@@ -93,6 +114,38 @@ def mann_whitney_less(x, y):
                               method="asymptotic").pvalue)
 
 
+def shared_rows(side):
+    """One side of the 17 shared starts as rows (res_ok and distance)."""
+    d = SHARED_STARTS[side]
+    return [dict(label=lab, res_ok=r, min_distance_m=m)
+            for lab, r, m in zip(SHARED_LABELS, d["res_ok"],
+                                 d["min_distance_m"])]
+
+
+def apart(a, b):
+    """Two-sided Mann-Whitney p on res_ok and minimum centre distance."""
+    from scipy.stats import mannwhitneyu
+    return {f"p_{k}": float(mannwhitneyu(
+        [r[k] for r in a], [r[k] for r in b], alternative="two-sided",
+        method="asymptotic").pvalue) for k in ("res_ok", "min_distance_m")}
+
+
+def against_shared(port):
+    """The port's runs (labelled as the shared starts) against the shared
+    starts' runs: by the rule against JAX on the first 11 starts and on all
+    17, and two-sided against the card's."""
+    by = {r["label"]: r for r in port}
+    out = {}
+    for n in (11, 17):
+        labels = [lab for lab in SHARED_LABELS[:n] if lab in by]
+        mine = [by[lab] for lab in labels]
+        jax = [r for r in shared_rows("jax") if r["label"] in labels]
+        card = [r for r in shared_rows("card") if r["label"] in labels]
+        out[f"first_{n}"] = dict(n=len(mine), vs_jax=judge(mine, jax),
+                                 vs_card=apart(mine, card))
+    return out
+
+
 def judge(port, jax_rows):
     """The rule: p-values on res_ok and minimum centre distance, and
     whether either is below ``ALPHA``."""
@@ -116,24 +169,32 @@ def table(name, rows):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--port", nargs="+", required=True)
-    ap.add_argument("--jax", nargs="+", required=True)
+    ap.add_argument("--jax", nargs="+", default=[])
+    ap.add_argument("--shared-starts", action="store_true")
     ap.add_argument("--name", default="port")
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
+    if bool(args.jax) == args.shared_starts:
+        ap.error("give --jax files or --shared-starts")
     port, smi = [], set()
     for path in args.port:
         rows, s = port_records(path)
         port += rows
         smi.add(s)
-    jax_rows = [jax_record(p) for p in args.jax]
-    out = dict(port=port, jax=jax_rows, device=sorted(x for x in smi if x),
-               port_median=table(args.name, port),
-               jax_median=table("jax (CPU)", jax_rows))
-    out.update(judge(port, jax_rows))
-    print(json.dumps(dict(n_port=len(port), n_jax=len(jax_rows),
-                          p_res_ok=out["p_res_ok"],
-                          p_min_distance=out["p_min_distance"],
-                          fault=out["fault"], device=out["device"])))
+    out = dict(port=port, device=sorted(x for x in smi if x),
+               port_median=table(args.name, port))
+    if args.shared_starts:
+        out["shared_starts"] = against_shared(port)
+        print(json.dumps(dict(n_port=len(port), device=out["device"],
+                              **out["shared_starts"])))
+    else:
+        jax_rows = [jax_record(p) for p in args.jax]
+        out.update(jax=jax_rows, jax_median=table("jax (CPU)", jax_rows))
+        out.update(judge(port, jax_rows))
+        print(json.dumps(dict(n_port=len(port), n_jax=len(jax_rows),
+                              p_res_ok=out["p_res_ok"],
+                              p_min_distance=out["p_min_distance"],
+                              fault=out["fault"], device=out["device"])))
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)

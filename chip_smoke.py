@@ -36,8 +36,9 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    below); one big-kernel solve at (1, 7, 405) captured in a CUDA graph
    and replayed three times gives the eager call's bits each time;
    at each shape a path gives K1 (``PATH_SHAPES``, and (1, 7, 605) float32
-   equilibrated and (2, 7, 264)), the device time of both kernels in
-   turns, of the plain version and of one ``torch.linalg.solve``
+   equilibrated and (2, 7, 264); the float32 flagship's and batch's shapes
+   also in float64 equilibrated, the variant their solves run), the device
+   time of both kernels in turns, of the plain version and of one ``torch.linalg.solve``
    on the assembled dense matrix (a yardstick the port never calls),
    beside the roofline bound; the cluster kernel also forced at
    (1, 14, 66) and (1, 7, 80), and its clock64() split at (1, 14, 108) and
@@ -49,7 +50,11 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    launch count equal to the staged solver's block-solve count;
 5. the float32 slice: the same entry point with ``dtype=torch.float32`` and
    the flagship's float32 profile, held against
-   ``tests/data/consensus_obca_f32_ref.npz`` (tolerance below);
+   ``tests/data/consensus_obca_f32_ref.npz`` (tolerance below); every
+   launch of a slice, of the batch (10) and of ``--full`` (8) is of the
+   variant ``ip_staged.kkt_variant`` names for its data (the float32 KKT
+   solves: K1's float64 equilibrated variant on the raised blocks, no
+   float32 launch);
 6. the multi-vehicle path: one MPC step of 4 vehicles in float64 and of 3
    vehicles in float32 (KKT widths 33/80 and 26/45, which the wide kernel
    and the warp kernel's 32-wide build solve), each held against the same
@@ -61,11 +66,15 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
 7. the kernels against their plain version on the KKT blocks those runs
    gave them (by solution and by backward error), the kernels line's
    blocks and the float64 batch's timed as in 3, and the clock64() split
-   of both kernels' profiling builds on them; then the committed float32
+   of both kernels' profiling builds on them (a float32 block also raised
+   to float64 through the float64 equilibrated variant, the one its path
+   runs); then the committed float32
    KKT systems of the card's flagship runs (``tests/data/
-   kkt_f32_sample.npz``, ``tools/kkt_corpus.py``), each solved by K1 and
-   by its plain version as the staged solver solves it (two refinements,
-   the residual verification): their ``bad`` counts and median forward
+   kkt_f32_sample.npz``, ``tools/kkt_corpus.py``), each solved by K1's
+   float32 equilibrated variant and by its plain version as the staged
+   solver solved them before its float32 solves ran in float64 (two
+   refinements, the residual verification), and by the staged solver's
+   own solve: their ``bad`` counts and median forward
    errors beside JAX's stored ones; fails if K1 rejects more of them than
    its plain version with an exact McNemar p < 0.01;
 8. ``--full``: all 42 steps of both profiles (and the whole runs of
@@ -106,7 +115,8 @@ Drives ``dlp_admm_torch`` (never JAX) through its main paths and checks it:
    against the same step on the CPU (and JAX's printed beside). The
    kernels are timed at the batch's shapes in 3 and 7.
    ``--full-batch``: the bench's 16 x 20 run in both profiles, the float64
-   one gated on ``bench.py:266``, the float32 one reported; wall,
+   one gated on ``bench.py:266``, the float32 one reported, its res_ok per
+   lane beside JAX's CPU run's (``JAX_BATCH_F32_CPU_LANES``); wall,
    lane-iterations/s, executed ADMM iterations (the slowest lane's, summed
    over steps) and loop efficiency printed beside the single-scenario run.
 
@@ -396,6 +406,9 @@ PATH_SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (16, 7, 20), (16, 7, 19),
                (4, 7, 33),
                (1, 7, 80), (1, 14, 34), (1, 14, 66), (1, 14, 108),
                (1, 7, 320), (1, 7, 405))
+# the shapes the float32 flagship and batch give K1, whose solves run in
+# float64 equilibrated (ip_staged.kkt_variant): timed in that variant too
+F32_PATH_SHAPES = ((2, 7, 19), (1, 7, 20), (32, 7, 19), (16, 7, 20))
 # ... and the 11-vehicle edge width, which no driven path gives K1, timed
 # for the big kernel's row in float32 equilibrated, and the synthetic 264,
 # where the cluster kernel is timed beside the big kernel
@@ -426,6 +439,10 @@ JAX_BATCH_QUALITY = dict(res_ok="288/320", min_distance_m=3.53,
 # --profile batch_f32, about 20 minutes), printed beside the port's
 JAX_BATCH_F32_CPU = dict(res_ok="296/320", steps_at_cap=26,
                          min_distance_m=3.638, gap_median=0.00825)
+# ... and that run's res_ok per lane (steps of 20 under the 0.01
+# residuals), printed beside the port's lanes (PERF.md §6)
+JAX_BATCH_F32_CPU_LANES = (19, 20, 18, 18, 19, 20, 20, 18, 20, 14, 19, 17,
+                           19, 16, 19, 20)
 # JAX's float32 flagship on the CPU from the unmoved start and from seeds
 # 1-10 with 1e-7 normal noise on z_bar (tools/make_torch_fixture.py
 # --profile f32 [--noise 1e-7 --seed N]), printed beside --full's one
@@ -758,13 +775,18 @@ def kkt_sample(thomas, ip_staged, smi):
     a rejection is decided by rounding in the verification's residual (on
     an H100 the same lanes gave K1 196 and the plain version 200 in the
     corpus's batches, 201 and 198 in this phase's), so a bare count is a
-    coin flip between two arms the corpus shows equal."""
+    coin flip between two arms the corpus shows equal. The staged solver's
+    own solve (the systems raised to float64 and solved by the float64
+    equilibrated variant, ``ip_staged.kkt_variant``) is reported beside
+    them as ``path``."""
     z = np.load(FIXTURE_KKT)
     fams = sorted({k.split("_")[0] for k in z.files if k.endswith("_rhs")})
     out, flags = dict(nvidia_smi=smi), {}
-    for arm, solve in (("kernel", ip_staged.block_thomas_solve),
+    for arm, solve in (("kernel", lambda d, u, r: thomas.block_thomas_solve(
+                           d, u, r, True)),
                        ("plain", lambda d, u, r: thomas.block_thomas_plain(
-                           d, u, r, True))):
+                           d, u, r, True)),
+                       ("path", ip_staged.block_thomas_solve)):
         bad, err = [], []
         for f in fams:
             d, u, r = (torch.as_tensor(z[f"{f}_{k}"], device=DEVICE)
@@ -844,7 +866,8 @@ def compare(thomas, diag, upper, rhs, label, equilibrate=False, kernel=None,
                            f"> {tol:.0e}")
     key = "rowwise_backward_err" if rowwise else "backward_err"
     if run_block and not row[key] <= max(
-            4.0 * row["plain_" + key], 10.0 * torch.finfo(rhs.dtype).eps):
+            4.0 * row["plain_" + key],
+            10.0 * torch.finfo(rhs.dtype).eps):
         raise RuntimeError(f"{label}: {row['gate']} backward error "
                            f"{row[key]:.3e} against the plain version's "
                            f"{row['plain_' + key]:.3e}")
@@ -975,10 +998,24 @@ class CaptureFirst:
         return self.solve(diag, upper, rhs)
 
 
+def plain_solve(thomas, ip_staged):
+    """The staged solver's KKT solve with the kernels' plain version in
+    place of K1, in the element type and variant ``ip_staged.kkt_variant``
+    names (a stand-in for ``ip_staged.block_thomas_solve``)."""
+    def solve(diag, upper, rhs):
+        real, equilibrate = ip_staged.kkt_variant(rhs.dtype)
+        return thomas.block_thomas_plain(
+            diag.to(real), upper.to(real), rhs.to(real),
+            equilibrate).to(rhs.dtype)
+    return solve
+
+
 def drive(thomas, ip_staged, run, solve=None):
     """Run ``run()`` with the launch counts set to 0 just before and read
     just after, keeping the first KKT system of each shape. ``solve``
-    replaces the staged solver's block solve (with the plain version)."""
+    replaces the staged solver's block solve (with the plain version).
+    The run's launches by kernel variant are kept in :data:`last_variants`
+    until the next call."""
     keep = ip_staged.block_thomas_solve
     cap = CaptureFirst(solve or keep)
     ip_staged.block_thomas_solve = cap
@@ -987,9 +1024,30 @@ def drive(thomas, ip_staged, run, solve=None):
         res = run()
         torch.cuda.synchronize()
         counts = dict(thomas.launches_by_kernel)
+        last_variants.clear()
+        last_variants.update(thomas.launches_by_variant)
     finally:
         ip_staged.block_thomas_solve = keep
     return res, counts, cap.systems
+
+
+# the launches by kernel variant (``thomas.variant_name``) of the run that
+# drive() drove last
+last_variants: dict = {}
+
+
+def check_variants(name, dtype, kernel="warp"):
+    """Every KKT solve of the run driven last went to the K1 variant that
+    the staged solver names for ``dtype`` data (``ip_staged.kkt_variant``):
+    float32 data to the float64 equilibrated variant, no float32 launch
+    left. Returns the launches by variant."""
+    from dlp_admm_torch.solvers import ip_staged, thomas
+    want = thomas.variant_name(kernel, *ip_staged.kkt_variant(dtype))
+    log(f"{name}: launches by variant {last_variants}")
+    if set(last_variants) != {want} or last_variants[want] <= 0:
+        raise RuntimeError(f"{name}: launches by variant {last_variants}, "
+                           f"expected {want} alone")
+    return dict(last_variants)
 
 
 def check_counts(name, counts, block_solves, expect):
@@ -1023,6 +1081,7 @@ def check_slice(name, res, pl, ref, counts, dev, tol, same_iterations):
         raise RuntimeError(f"{name}: ADMM iterations {its.tolist()} != JAX "
                            f"{ref['iterations'][:n].tolist()}")
     check_counts(name, counts, pl.block_solves, ("warp",))
+    check_variants(name, pl.dtype)
     st, bs = pl.carry
     for field, x in [("state", st)] + list(bs._asdict().items()):
         if x.device.type != dev.type or x.dtype != pl.dtype:
@@ -1073,10 +1132,7 @@ def multi_vehicle(thomas, ip_staged, run_obca, Formulation, num_veh, dtype,
             scfg=SolverConfig(ip_iters=40, ip_tol=1e-6 if f64 else 1e-4),
             n_steps=1, dtype=dtype, gate_pairs=True, gate_thres=12.0)
 
-    def plain(diag, upper, rhs):
-        return thomas.block_thomas_plain(diag, upper, rhs,
-                                         rhs.dtype != torch.float64)
-
+    plain = plain_solve(thomas, ip_staged)
     res, counts, systems = drive(thomas, ip_staged, run)
     pl = res.extras["planner"]
     check_counts(name, counts, pl.block_solves, expect)
@@ -1259,10 +1315,11 @@ def smoke(args, records):
                     # timed at the path shapes in the variant the staged
                     # solver asks for in each type (every shape in both
                     # variants until phases 16-17 joined the run)
-                    timed = (kind_ == "diag_dominant"
-                             and eq == (dtype != torch.float64)
-                             and (s, t, b) in PATH_SHAPES
-                             + TIMED_SYNTH_SHAPES)
+                    timed = kind_ == "diag_dominant" and (
+                        eq == (dtype != torch.float64)
+                        and (s, t, b) in PATH_SHAPES + TIMED_SYNTH_SHAPES
+                        or eq and dtype == torch.float64
+                        and (s, t, b) in F32_PATH_SHAPES)
                     # the big kernel is timed beside the cluster kernel
                     # where that is timed (108, 320) and at 264
                     other = None
@@ -1294,6 +1351,7 @@ def smoke(args, records):
     with phase(records, "4-5 slices"):
         systems = {}
         paths = {}
+        variants = records["launches_by_variant"] = {}
         for name, dtype, tol, same_its in (
                 ("slice float64", torch.float64, STATE_TOL, True),
                 ("slice float32", torch.float32, STATE_TOL_F32, False)):
@@ -1305,6 +1363,8 @@ def smoke(args, records):
             check_slice(name, res, pl, refs[dtype], counts, dev, tol, same_its)
             records[name] = slice_record(name, res, refs[dtype], counts,
                                          pl.block_solves)
+            records[name]["launches_by_variant"] = dict(last_variants)
+            variants[name] = dict(last_variants)
             if len(kkt) != 2:
                 raise RuntimeError(f"{name}: expected local and edge KKT "
                                    f"shapes, got {sorted(kkt)}")
@@ -1348,6 +1408,23 @@ def smoke(args, records):
                     f"B={key[2]}", r.dtype != torch.float64,
                     timed=(name, key) in TIMED_RUN_BLOCKS, run_block=True,
                     rowwise=name in ROWWISE_PATHS), path=name))
+                if r.dtype == torch.float32:
+                    # the variant the path runs: the block raised to float64,
+                    # equilibrated (ip_staged.kkt_variant). Held row by row:
+                    # the float32 slice's first local block has an equation
+                    # (stage 0, 13) of two entries and a zero right-hand side
+                    # whose terms sum to 4.7e-16 beside a solution of 1.9e3,
+                    # so the entry-by-entry measure asks for that entry to
+                    # 1e-31 and is noise for any elimination: the same block
+                    # made on the CPU scores 1.2e-11 by the plain version and
+                    # 1.0 by LAPACK's LU (tools/raised_block_errors.py)
+                    real.append(dict(compare(
+                        thomas, d.double(), u.double(), r.double(),
+                        f"{name} KKT S={key[0]} T={key[1]} B={key[2]} "
+                        f"raised to float64", True,
+                        timed=(name, key) in TIMED_RUN_BLOCKS,
+                        run_block=True, rowwise=True),
+                        path=name + " raised"))
         records["clock_split"] = clock_split(thomas, systems)
         records["kkt_sample"] = kkt_sample(thomas, ip_staged, smi)
 
@@ -1391,8 +1468,9 @@ def smoke(args, records):
                     Formulation.CONSENSUS, **flagship_profile(dtype)))
             check_counts(f"full {name}", counts,
                          res.extras["planner"].block_solves, ("warp",))
-            records["full"][name] = dict(full_record(res, refs[dtype], name),
-                                         launches=counts)
+            records["full"][name] = dict(
+                full_record(res, refs[dtype], name), launches=counts,
+                launches_by_variant=check_variants(f"full {name}", dtype))
             if dtype == torch.float32:
                 records["full"][name]["beside_jax_cpu"] = beside_jax_f32(
                     records["full"][name])
@@ -1417,7 +1495,9 @@ def smoke(args, records):
 
     kernels = {"kernels": [
         kernel_entry("warp", real, paths, "slice float64", (2, 7, 19),
-                     at_shapes=(("slice float32", (2, 7, 19)),)),
+                     at_shapes=(("slice float32 raised", (2, 7, 19)),
+                                ("slice float32", (2, 7, 19))),
+                     variants=records["launches_by_variant"]),
         kernel_entry("wide", real, paths, "multi-vehicle V=4 float64",
                      (1, 7, 80), at_shapes=(
                          ("centralized float64", (1, 14, 34)),)),
@@ -1582,10 +1662,12 @@ def batch_path(thomas, ip_staged, paths, systems, refs, single, smi):
     pl, _, res, wall, counts, kkt = batch_run(
         thomas, ip_staged, torch.float32, BATCH_F32_SMOKE_STEPS, prof)
     check_counts(name, counts, pl.block_solves, ("warp",))
+    by_variant = check_variants(name, torch.float32)
     systems[name] = kkt
     paths[name] = counts
     nums = batch_numbers(res, wall, smi)
-    nums.update(launches=counts, block_solves=pl.block_solves,
+    nums.update(launches=counts, launches_by_variant=by_variant,
+                block_solves=pl.block_solves,
                 kkt_shapes=sorted(kkt), iterations=res[1].tolist())
     log(f"{name}: " + json.dumps(nums))
     if not all(nums["gates"].values()):
@@ -1701,8 +1783,17 @@ def full_batch(thomas, ip_staged, records, smi, out_path):
         pl, _, res, wall, counts, _ = batch_run(thomas, ip_staged, dtype,
                                                 BATCH_STEPS, prof)
         check_counts(name, counts, pl.block_solves, ("warp",))
+        by_variant = check_variants(name, dtype)
         nums = batch_numbers(res, wall, smi)
-        nums.update(launches=counts, block_solves=pl.block_solves,
+        if dtype == torch.float32:
+            # one run of a chaotic window each: set beside, not gated
+            lanes = ((res[2] <= 0.01) & (res[3] <= 0.01)).sum(axis=1)
+            nums.update(lane_res_ok=lanes.tolist(),
+                        jax_cpu_lane_res_ok=list(JAX_BATCH_F32_CPU_LANES))
+            log(f"{name}: res_ok per lane {lanes.tolist()}, JAX on the CPU "
+                f"{list(JAX_BATCH_F32_CPU_LANES)}")
+        nums.update(launches=counts, launches_by_variant=by_variant,
+                    block_solves=pl.block_solves,
                     iterations=res[1].tolist(),
                     jax_quality=JAX_BATCH_QUALITY,
                     jax_cpu=(JAX_BATCH_F32_CPU if dtype == torch.float32
@@ -1854,9 +1945,9 @@ class CountReplays:
     def __init__(self, replay):
         self.replay, self.n = replay, 0
 
-    def __call__(self, graph, kernels):
+    def __call__(self, graph, variants):
         self.n += 1
-        return self.replay(graph, kernels)
+        return self.replay(graph, variants)
 
 
 def drive_centralized(thomas, ip_staged, run, solve=None):
@@ -2028,9 +2119,7 @@ def centralized_path(thomas, ip_staged, paths, systems, smi):
     ref = np.load(FIXTURE_CEN)
     prof = json.loads(str(ref["profile"]))
 
-    def plain(diag, upper, rhs):
-        return thomas.block_thomas_plain(diag, upper, rhs,
-                                         rhs.dtype != torch.float64)
+    plain = plain_solve(thomas, ip_staged)
 
     # -- 11.1 run_obca(CENTRALIZED), float64, against the JAX run ---------
     name = "centralized float64"
@@ -3101,7 +3190,7 @@ def big_graph_replay(thomas, rng, dev):
     for _ in range(3):
         got.fill_(float("nan"))
         before = thomas.launches_by_kernel["big"]
-        thomas.replay(graph, {"big": 1})
+        thomas.replay(graph, {"big f64": 1})
         torch.cuda.synchronize()
         same.append(bool(torch.equal(got, want))
                     and thomas.launches_by_kernel["big"] == before + 1)
@@ -3113,14 +3202,17 @@ def big_graph_replay(thomas, rng, dev):
     return dict(shape=[1, 7, 405], replays_same_bits=same)
 
 
-def kernel_entry(name, real, paths, path, shape, at_shapes=()):
+def kernel_entry(name, real, paths, path, shape, at_shapes=(),
+                 variants=None):
     """One kernel's line: launches over every driven path, and the error
     against the plain version and the times on the KKT system of ``shape``
     that ``path`` gave it; ``worst_rel_err`` is the largest relative error
     on any path's system (held to RUN_TOL and to the plain version's
     backward error by :func:`compare`). ``at_shapes`` ((path, shape), ...)
     adds the same numbers at other shapes as sub-records, with the
-    launches of that path."""
+    launches of that path; a path ``"<p> raised"`` is path ``p``'s block
+    raised to float64. ``variants`` (path -> launches by variant) adds each
+    sub-record's launches of its own variant on its path."""
     rows = [r for r in real if r["kernel"] == name]
 
     def numbers(p, shp):
@@ -3142,10 +3234,21 @@ def kernel_entry(name, real, paths, path, shape, at_shapes=()):
                launches_by_path={p: c[name] for p, c in paths.items()},
                worst_rel_err=max(r["max_rel_err"] for r in rows),
                **numbers(path, shape))
+    def variant_launches(p, shp):
+        at = next(r for r in rows
+                  if r["path"] == p and tuple(r["shape"]) == shp)
+        v = f"{name} {'f32' if at['dtype'] == 'float32' else 'f64'}" + (
+            " eq" if at["equilibrate"] else "")
+        on = (variants or {}).get(p.removesuffix(" raised"), {})
+        return v, on.get(v, 0)
+
     if at_shapes:
-        out["at_shapes"] = [dict(numbers(p, shp), path=p,
-                                 launches=paths[p][name])
-                            for p, shp in at_shapes]
+        out["at_shapes"] = []
+        for p, shp in at_shapes:
+            v, n = variant_launches(p, shp)
+            out["at_shapes"].append(dict(
+                numbers(p, shp), path=p, variant=v, launches_of_variant=n,
+                launches=paths[p.removesuffix(" raised")][name]))
     return out
 
 

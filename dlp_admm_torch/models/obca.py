@@ -145,7 +145,8 @@ class CentralizedObcaPlanner(_RecedingHorizon):
     step from the reference window (the reference's ``initialize()``);
     ``"previous"`` shifts the previous optimum. ``device`` defaults to the
     CUDA card (:func:`resolve_device`); ``dtype`` is float64 or float32 (in
-    float32 the staged solver equilibrates every stage solve).
+    float32 the staged solver solves its KKT systems raised to float64,
+    every stage solve equilibrated).
     """
 
     def __init__(self, ocfg: ObcaConfig = ObcaConfig(horizon=15),
@@ -434,8 +435,9 @@ class ConsensusObcaPlanner(_RecedingHorizon):
 
     ``device`` and ``dtype`` place every tensor of the planner. ``device``
     defaults to the CUDA card (:func:`resolve_device`); ``dtype`` is
-    float64 or float32. In float32 the staged solver equilibrates every
-    stage solve inside the block-Thomas kernel and refines twice, and the
+    float64 or float32. In float32 the staged solver raises its KKT
+    systems to float64, equilibrates every stage solve inside the
+    block-Thomas kernel, and refines twice in float32, and the
     flagship's profile is ``ip_tol=1e-4``, ``prox_tau_max=1e9`` (the
     float64 profile's 1e-6 is below the float32 noise floor of the scaled
     KKT residuals, and its 3e10 prox tail swamps the KKT conditioning).

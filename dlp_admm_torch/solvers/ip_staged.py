@@ -101,19 +101,34 @@ def _ftb(v, dv, tau, dims=(1, 2)):
     return torch.clamp(torch.amin(ratio, dim=dims), max=1.0)
 
 
+def kkt_variant(dtype: torch.dtype) -> tuple[torch.dtype, bool]:
+    """The element type and the variant (equilibrated or not) of the K1
+    solve that :func:`block_thomas_solve` runs for data of ``dtype``:
+    float64 data as it is; float32 data raised to float64, equilibrated."""
+    return torch.float64, dtype != torch.float64
+
+
 def block_thomas_solve(diag, upper, rhs):
     """Batched symmetric block-tridiagonal solve ``diag [S, T, B, B]``,
     ``upper [S, T, B, B]`` (entry T-1 ignored), ``rhs [S, T, B]`` ->
-    ``[S, T, B]``: the kernel of :mod:`.thomas` (its plain version on CPU).
+    ``[S, T, B]``: the kernel of :mod:`.thomas` (its plain version on CPU),
+    in the element type and variant :func:`kkt_variant` names.
 
-    In float32 each per-stage solve is equilibrated and refined once inside
-    the kernel, as the JAX solver does (``linalg.equil_solve``): the
-    planner's annealed-prox Hessians mix O(1e6) curvature rows with O(1)
-    constraint rows and near-zero multiplier diagonals, which a raw float32
-    elimination cannot factor accurately."""
-    return thomas.block_thomas_solve(
-        diag.contiguous(), upper.contiguous(), rhs.contiguous(),
-        equilibrate=rhs.dtype != torch.float64)
+    Float32 data is raised to float64 and solved by the equilibrated
+    variant (each per-stage solve equilibrated and refined once inside the
+    kernel, as JAX's ``linalg.equil_solve`` does), and the solution is cast
+    back to float32; the refinements' residuals and the verification stay in
+    float32. The planner's annealed-prox Hessians mix O(1e6) curvature rows
+    with O(1) constraint rows and near-zero multiplier diagonals: a float32
+    solve of them, equilibrated or not, rejects about one lane system in
+    nine, on the card and in JAX alike, and the port's float32 runs lost
+    steps under the residual thresholds by it where JAX's did not (PERF.md
+    §6)."""
+    real, equilibrate = kkt_variant(rhs.dtype)
+    out = thomas.block_thomas_solve(
+        diag.to(real).contiguous(), upper.to(real).contiguous(),
+        rhs.to(real).contiguous(), equilibrate=equilibrate)
+    return out.to(rhs.dtype)
 
 
 class _Carry(NamedTuple):
@@ -199,16 +214,17 @@ def _trips_graphed(trip, carry, max_trips):
     graph = torch.cuda.CUDAGraph()
     pool, _ = _capture_pools.get(dev) or (torch.cuda.graph_pool_handle(),
                                           None)
-    before = dict(thomas.captured)
+    before = dict(thomas.captured_by_variant)
     with torch.cuda.stream(stream):
         graph.capture_begin(pool=pool)
         for dst, src in zip(static, trip(static)):
             dst.copy_(src)
         graph.capture_end()
     _capture_pools[dev] = (pool, graph)
-    kernels = {k: n - before[k] for k, n in thomas.captured.items()}
+    variants = {k: n - before.get(k, 0)
+                for k, n in thomas.captured_by_variant.items()}
     while trips < max_trips:
-        thomas.replay(graph, kernels)
+        thomas.replay(graph, variants)
         trips += 1
         if on_trip is not None:
             on_trip(trip, static, trips)

@@ -47,11 +47,13 @@ Four kernels, chosen by the block width (:func:`kernel_plan`):
 :func:`block_thomas_solve` takes the plain version for tensors on the CPU and
 launches a kernel for tensors on a CUDA device; there is no fallback between
 the two, nor from one kernel to the other. :data:`launches` counts kernel
-launches, :data:`launches_by_kernel` by kernel.
+launches, :data:`launches_by_variant` by kernel, element type and variant
+(:func:`variant_name`), and :data:`launches_by_kernel` sums those by kernel.
 """
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Mapping
 
 import torch
 
@@ -105,36 +107,71 @@ H100_SMEM_LIMIT = 232448
 H100_SM_COUNT = 132
 
 # kernel launches made by block_thomas_solve / launch_kernel or by replaying
-# a CUDA graph that holds them (a run can show it went through the kernels);
-# the plain version does not count
+# a CUDA graph that holds them, by variant (:func:`variant_name`; a bare
+# kernel name counts for its kernel alone), so a run can show it went
+# through the kernels; the plain version does not count
 launches = 0
-launches_by_kernel = dict.fromkeys(KERNELS, 0)
-# kernels recorded into CUDA graphs under stream capture (not yet launched)
-captured = dict.fromkeys(KERNELS, 0)
+launches_by_variant: dict = {}
+# launches recorded into CUDA graphs under stream capture (not yet launched)
+captured_by_variant: dict = {}
 
 _limits: dict = {}
+
+
+class _ByKernel(Mapping):
+    """A count by variant, read as the sum over each kernel's variants (the
+    first word of a variant's name)."""
+
+    def __init__(self, by_variant: dict):
+        self._by_variant = by_variant
+
+    def __getitem__(self, name: str) -> int:
+        if name not in KERNELS:
+            raise KeyError(name)
+        return sum(n for v, n in self._by_variant.items()
+                   if v.split()[0] == name)
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self) -> int:
+        return len(KERNELS)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
+launches_by_kernel = _ByKernel(launches_by_variant)
+captured = _ByKernel(captured_by_variant)
+
+
+def variant_name(kernel: str, dtype: torch.dtype, equilibrate: bool) -> str:
+    """The key of :data:`launches_by_variant`: ``"warp f64 eq"``, say."""
+    return (f"{kernel} f{torch.finfo(dtype).bits}"
+            f"{' eq' if equilibrate else ''}")
 
 
 def reset_counts() -> None:
     """Set every launch count to 0."""
     global launches
     launches = 0
-    for name in KERNELS:
-        launches_by_kernel[name] = 0
+    launches_by_variant.clear()
 
 
-def _count(kernels: dict) -> None:
+def _count(variants: dict) -> None:
     global launches
-    for name, n in kernels.items():
-        launches_by_kernel[name] += n
-        launches += n
+    for name, n in variants.items():
+        if n:
+            launches_by_variant[name] = launches_by_variant.get(name, 0) + n
+            launches += n
 
 
-def replay(graph, kernels: dict) -> None:
-    """Replay a captured CUDA graph that holds ``kernels[name]`` launches of
-    each kernel (the growth of :data:`captured` during its capture)."""
+def replay(graph, variants: dict) -> None:
+    """Replay a captured CUDA graph that holds ``variants[name]`` launches
+    of each variant (the growth of :data:`captured_by_variant` during its
+    capture)."""
     graph.replay()
-    _count(kernels)
+    _count(variants)
 
 
 def _gauss_jordan(c: torch.Tensor, m: torch.Tensor,
@@ -606,7 +643,8 @@ def launch_kernel(diag: torch.Tensor, upper: torch.Tensor, rhs: torch.Tensor,
     CTA); for the big kernel ``[S, ctas, 6]``, the same with the flag and
     barrier waits in place of the cluster barriers.
     Under stream capture the launch is recorded into the graph and
-    counted in :data:`captured`; :func:`replay` counts it when it runs.
+    counted in :data:`captured_by_variant`; :func:`replay` counts it when it
+    runs.
     """
     _check(diag, upper, rhs)
     if rhs.device.type != "cuda":
@@ -749,10 +787,11 @@ def launch_kernel(diag: torch.Tensor, upper: torch.Tensor, rhs: torch.Tensor,
         raise RuntimeError(f"block_thomas_{name} launch failed: code {rc} "
                            f"(a cudaError, or -1 arguments, -2 layout, -3 "
                            f"CTAs not co-resident)")
+    variant = variant_name(name, rhs.dtype, equilibrate)
     if torch.cuda.is_current_stream_capturing():
-        captured[name] += 1
+        captured_by_variant[variant] = captured_by_variant.get(variant, 0) + 1
     else:
-        _count({name: 1})
+        _count({variant: 1})
     return (out, prof) if profile else out
 
 

@@ -178,7 +178,8 @@ def test_float32_matches_jax(spec_kw):
 
 def test_float32_solves_are_equilibrated(monkeypatch):
     """The staged solver asks the block-Thomas wrapper for the equilibrated
-    variant exactly when the data is not float64."""
+    variant exactly when the data is not float64, and solves float32 data
+    raised to float64."""
     seen = []
     plain = tip.thomas.block_thomas_solve
 
@@ -189,7 +190,7 @@ def test_float32_solves_are_equilibrated(monkeypatch):
     monkeypatch.setattr(tip.thomas, "block_thomas_solve", spy)
     for dtype in (np.float64, np.float32):
         _solve_both([[1.0, 0.0]], 1e-4, dtype=dtype)
-    assert {(torch.float64, False), (torch.float32, True)} == set(seen)
+    assert {(torch.float64, False), (torch.float64, True)} == set(seen)
 
 
 def test_float32_literals_behave_as_in_jax():

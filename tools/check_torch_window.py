@@ -302,8 +302,8 @@ def record_steps(data, steps, dev, path, plain=False):
     """Each step once from its carry; writes ``port_<k>_<field>``."""
     keep = ip_staged.block_thomas_solve
     if plain:
-        ip_staged.block_thomas_solve = lambda d, u, r: \
-            thomas.block_thomas_plain(d, u, r, r.dtype != torch.float64)
+        ip_staged.block_thomas_solve = chip_smoke.plain_solve(thomas,
+                                                              ip_staged)
     arrays = {}
     try:
         pl = ConsensusObcaPlanner(device=dev,

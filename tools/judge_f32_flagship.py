@@ -19,7 +19,15 @@ Inputs:
   the port's on the card (NVIDIA H100 80GB HBM3, 700.00 W), as recorded
   there: the given runs are judged against JAX's on the first 11 and on
   all 17, and set against the card's by a two-sided test (is a stand-in's
-  side apart from the card's?).
+  side apart from the card's?);
+* or ``--stage-f64 PATH.npz ...``: JAX's float32 runs from the 17 shared
+  starts with every KKT solve of its staged solver in float64
+  (``tools/make_torch_fixture.py --profile f32 --stage-f64 [--noise 1e-7
+  --seed N] --out .../<label>.npz``, the label ``unmoved`` or ``seedN``
+  after the file name's last ``_``), judged by Rule J of ``PERF.md`` §6:
+  J-up if a one-sided Mann-Whitney test finds them higher on
+  res_ok than JAX's float32 runs with p < 0.05, J-flat otherwise; beside
+  it, two-sided, against the card's float64-K1 runs.
 
 Prints a table row per run (res_ok, steps at the ADMM cap, minimum centre
 distance, minimum footprint gap, NLP health, median and maximum consensus
@@ -28,6 +36,8 @@ Plain numpy and scipy: runs on the CPU.
 
 Usage: python3 tools/judge_f32_flagship.py --port A.json [B.json ...]
            (--jax X.npz [Y.npz ...] | --shared-starts) [--name card]
+           [--json PATH]
+       python3 tools/judge_f32_flagship.py --stage-f64 X.npz [...]
            [--json PATH]
 """
 import argparse
@@ -50,7 +60,10 @@ ALPHA = 0.05
 COLUMNS = ("res_ok", "steps_at_cap", "min_distance_m", "min_footprint_gap_m",
            "health", "gap_median", "gap_max")
 # the 17 shared starts of PERF.md §6 (unmoved, seeds 1-16 at 1e-7): res_ok
-# and minimum centre distance per start, JAX on the CPU and the card
+# and minimum centre distance per start, JAX on the CPU and the card (and
+# the card with every float32 KKT solve through K1's float64 equilibrated
+# variant, perturbed_torch_flagship.py --k1-f64, and JAX with every KKT
+# solve of its staged solver in float64, make_torch_fixture.py --stage-f64)
 SHARED_LABELS = ("unmoved",) + tuple(f"seed{i}" for i in range(1, 17))
 SHARED_STARTS = dict(
     jax=dict(res_ok=(39, 40, 41, 32, 34, 39, 39, 40, 40, 39, 41, 35, 37, 41,
@@ -62,7 +75,18 @@ SHARED_STARTS = dict(
                       41, 34, 36),
               min_distance_m=(3.128, 4.151, 4.171, 3.992, 4.013, 3.111,
                               3.960, 2.926, 3.068, 3.686, 3.273, 2.618,
-                              4.079, 3.751, 4.110, 2.940, 3.530)))
+                              4.079, 3.751, 4.110, 2.940, 3.530)),
+    card_k1_f64=dict(res_ok=(39, 38, 40, 41, 36, 41, 39, 39, 41, 37, 41, 32,
+                             41, 37, 40, 37, 41),
+                     min_distance_m=(4.159, 3.440, 3.581, 4.112, 2.728, 4.069,
+                                     4.144, 3.789, 4.637, 3.206, 3.465, 2.367,
+                                     4.495, 3.567, 4.234, 3.341, 4.614)),
+    jax_stage_f64=dict(res_ok=(39, 41, 40, 29, 36, 38, 40, 35, 39, 34, 34,
+                               33, 39, 37, 38, 41, 40),
+                       min_distance_m=(4.318, 3.823, 4.187, 2.167, 2.861,
+                                       2.647, 2.768, 2.710, 3.104, 2.591,
+                                       2.492, 2.642, 3.953, 4.671, 4.306,
+                                       3.968, 4.430)))
 
 
 def footprint_gap(states):
@@ -146,6 +170,23 @@ def against_shared(port):
     return out
 
 
+def rule_j(j64):
+    """Rule J on JAX's float64-stage runs ``j64`` (rows labelled as the
+    shared starts): the one-sided p that JAX's float32 runs are lower on
+    res_ok (J-up below ``ALPHA``), and two-sided against the card's
+    float64-K1 runs of the same starts."""
+    labels = {r["label"] for r in j64}
+    j32, k1 = ([r for r in shared_rows(side) if r["label"] in labels]
+               for side in ("jax", "card_k1_f64"))
+    by = {r["label"]: r for r in j64}
+    mine = [by[r["label"]] for r in j32]
+    p_up = mann_whitney_less([r["res_ok"] for r in j32],
+                             [r["res_ok"] for r in mine])
+    return dict(n=len(mine), p_up=p_up,
+                verdict="J-up" if p_up < ALPHA else "J-flat",
+                vs_card_k1_f64=apart(mine, k1))
+
+
 def judge(port, jax_rows):
     """The rule: p-values on res_ok and minimum centre distance, and
     whether either is below ``ALPHA``."""
@@ -168,14 +209,25 @@ def table(name, rows):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--port", nargs="+", required=True)
+    ap.add_argument("--port", nargs="+", default=[])
     ap.add_argument("--jax", nargs="+", default=[])
     ap.add_argument("--shared-starts", action="store_true")
+    ap.add_argument("--stage-f64", nargs="+", default=[])
     ap.add_argument("--name", default="port")
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
-    if bool(args.jax) == args.shared_starts:
-        ap.error("give --jax files or --shared-starts")
+    if args.stage_f64:
+        rows = [dict(jax_record(p), label=os.path.splitext(
+            os.path.basename(p))[0].split("_")[-1]) for p in args.stage_f64]
+        out = dict(j64=rows, j64_median=table("JAX, float64 stage (CPU)",
+                                              rows), rule_j=rule_j(rows))
+        print(json.dumps(out["rule_j"]))
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(out, f, indent=1)
+        return
+    if not args.port or bool(args.jax) == args.shared_starts:
+        ap.error("give --port with --jax files or --shared-starts")
     port, smi = [], set()
     for path in args.port:
         rows, s = port_records(path)

@@ -323,7 +323,7 @@ def capture_one(args, seed):
     cap = Capture(ip_staged.block_thomas_solve, window)
     run_args = types.SimpleNamespace(noise=args.noise, device=args.device,
                                      steps=args.steps, carries=None,
-                                     dtype="f32", k1_f64=False)
+                                     dtype="f32")
     t0 = time.perf_counter()
     with patched(cap):
         run, per_step = ptf.one_run(run_args, seed, torch.float32, ref)

@@ -171,7 +171,19 @@ of the start shows at which (lane, step) the JAX run leaves itself
 capped steps, converged fraction and minimum distance).
 
 With ``--profile batch`` the noise goes on the 16 starts, and the run prints
-per (lane, step) its largest state distance from the committed fixture.
+per (lane, step) its largest state distance from the committed fixture;
+with ``batch_f32`` it goes on the whole ``[16, 2, 5]`` start as well, and
+the run prints its res_ok per lane (``--out`` keeps the starts, each
+lane's iterations and residuals): ``tools/perturbed_torch_batch.py judge``
+sets it beside the port's batch from the same starts.
+
+``--stage-f64`` (``f32`` only) runs JAX's float32 flagship with every KKT
+solve of its staged solver in float64 (:func:`stage_solve_f64`: the
+block-Thomas recursion on the host, one ``np.linalg.solve`` a stage,
+through ``jax.pure_callback``; the refinements' residuals and the solve's
+verification stay JAX's own, in float32); it saves nothing unless
+``--out`` is given. ``tools/judge_f32_flagship.py --stage-f64`` judges
+such runs.
 
 With ``--profile classic``, ``centralized`` or ``aladin`` the noise goes
 on the start (the references, for ``centralized``), and the run prints per
@@ -183,7 +195,7 @@ Usage: python tools/make_torch_fixture.py
                       spmd|classic|
                       centralized|centralized_v4|bilevel|aladin|checkpoint|
                       mesh|options]
-           [--steps N] [--out PATH] [--noise EPS --seed N]
+           [--steps N] [--out PATH] [--noise EPS --seed N] [--stage-f64]
 """
 import argparse
 import json
@@ -817,18 +829,31 @@ def write_batch(out, commit, noise=0.0, seed=0):
         gap_median=float(np.median(gaps)), commit=commit)))
 
 
-def write_batch_f32(out, commit, steps=None):
+def moved_starts(inits, noise, seed):
+    """The batch's starts ``inits`` with normal noise of size ``noise`` on
+    every entry, drawn from ``default_rng(seed)`` in float64, as
+    :func:`write_batch` moves them (``tools/perturbed_torch_batch.py``
+    moves the port's so)."""
+    if not noise:
+        return inits
+    return inits + noise * np.random.default_rng(seed).normal(
+        size=inits.shape)
+
+
+def write_batch_f32(out, commit, steps=None, noise=0.0, seed=0):
     """JAX's float32 ``run_scenario_batch`` of bench.py's third metric,
     whole (16 lanes x 2 vehicles x 20 steps, ``bench.py:248-283``), on the
     CPU: the record ``chip_smoke.py --full-batch`` prints beside the port's
     float32 batch (``JAX_BATCH_F32_CPU``). Prints res_ok against bench.py's
-    gate (0.01 residuals, 272 of 320), the steps at the ADMM cap, the
-    smallest centre distance and the median consensus gap; ``--out`` keeps
-    the run."""
+    gate (0.01 residuals, 272 of 320) and per lane, the steps at the ADMM
+    cap, the smallest centre distance and the median consensus gap;
+    ``--out`` keeps the run (each lane's states, iterations and residuals).
+    With ``noise``, the starts are moved as :func:`moved_starts` moves
+    them."""
     from dlp_admm_tpu.parallel.consensus_spmd import run_scenario_batch
     steps = steps or BATCH_F32_STEPS
     pl = make_planner("f32")
-    inits = batch_starts(pl)
+    inits = moved_starts(batch_starts(pl), noise, seed)
     t0 = time.perf_counter()
     states, its, prs, dus, cvs, gaps = [np.asarray(x) for x in
                                         run_scenario_batch(pl, inits, steps)]
@@ -837,19 +862,24 @@ def write_batch_f32(out, commit, steps=None):
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         np.savez_compressed(
             out, states=states, iterations=its, primal=prs, dual=dus,
-            converged=cvs, gaps=gaps, profile=np.asarray(json.dumps(
-                dict(BATCH, planner=PROFILES["f32"], steps=steps),
-                sort_keys=True)), commit=np.asarray(commit))
+            converged=cvs, gaps=gaps, starts=inits,
+            profile=np.asarray(json.dumps(
+                dict(BATCH, planner=PROFILES["f32"], steps=steps,
+                     noise=noise, noise_seed=seed), sort_keys=True)),
+            commit=np.asarray(commit))
     p = states[..., :2]
+    ok = (prs <= 0.01) & (dus <= 0.01)
+    at_cap = its >= PROFILES["f32"]["ocfg"]["max_admm_iters"]
     print(json.dumps(dict(
         out=os.path.relpath(out, ROOT) if out else None, profile="batch_f32",
+        noise=noise, seed=seed,
         steps=steps, lanes=int(its.size), seconds=round(secs, 1),
-        res_ok=int(((prs <= 0.01) & (dus <= 0.01)).sum()),
-        steps_at_cap=int((its >= PROFILES["f32"]["ocfg"][
-            "max_admm_iters"]).sum()),
+        res_ok=int(ok.sum()), steps_at_cap=int(at_cap.sum()),
         min_distance_m=float(np.linalg.norm(p[:, :, 0] - p[:, :, 1],
                                             axis=-1).min()),
-        gap_median=float(np.median(gaps)), iterations=its.tolist(),
+        gap_median=float(np.median(gaps)),
+        lane_res_ok=ok.sum(axis=1).tolist(),
+        lane_steps_at_cap=at_cap.sum(axis=1).tolist(), iterations=its.tolist(),
         commit=commit)))
 
 
@@ -1333,6 +1363,62 @@ def write_checkpoint(out, commit):
         commit=commit)))
 
 
+def thomas_f64_host(diag, upper, rhs):
+    """The block-Thomas recursion of ``dlp_admm_tpu/solvers/ip_staged.py``
+    (``block_thomas_solve``) in float64 on the host, one
+    ``np.linalg.solve`` a stage: ``diag [..., T, B, B]``, ``upper [...,
+    T or T-1, B, B]``, ``rhs [..., T, B]`` (leading axes broadcast, as
+    ``jax.pure_callback``'s ``expand_dims`` batching passes them) ->
+    ``[..., T, B]`` float64."""
+    d = np.asarray(diag, np.float64)
+    u = np.asarray(upper, np.float64)
+    r = np.asarray(rhs, np.float64)
+    t, b = r.shape[-2:]
+    lead = np.broadcast_shapes(d.shape[:-3], u.shape[:-3], r.shape[:-2])
+    d = np.broadcast_to(d, lead + d.shape[-3:])
+    u = np.broadcast_to(u, lead + u.shape[-3:])[..., :t - 1, :, :]
+    r = np.broadcast_to(r, lead + (t, b))
+    zero = np.zeros(lead + (b, b))
+    xs, ys = [], []
+    x_prev, y_prev, u_prev = zero, np.zeros(lead + (b,)), zero
+    for k in range(t):
+        u_k = u[..., k, :, :] if k < t - 1 else zero
+        ut = np.swapaxes(u_prev, -1, -2)
+        c_k = d[..., k, :, :] - ut @ x_prev
+        g_k = r[..., k, :] - (ut @ y_prev[..., None])[..., 0]
+        sol = np.linalg.solve(c_k, np.concatenate([u_k, g_k[..., None]],
+                                                   axis=-1))
+        x_prev, y_prev, u_prev = sol[..., :b], sol[..., b], u_k
+        xs.append(x_prev)
+        ys.append(y_prev)
+    z = np.zeros(lead + (b,))
+    out = [None] * t
+    for k in reversed(range(t)):
+        z = ys[k] - (xs[k] @ z[..., None])[..., 0]
+        out[k] = z
+    return np.stack(out, axis=-2)
+
+
+def stage_solve_f64(diag, upper, rhs):
+    """A stand-in for ``dlp_admm_tpu.solvers.ip_staged.block_thomas_solve``
+    that solves in float64: ``(diag, upper, rhs)`` raised to float64 on the
+    host (:func:`thomas_f64_host`) through ``jax.pure_callback``, the result
+    cast back to ``rhs``'s type. It traces with JAX's 64-bit mode off,
+    under ``jit``, ``vmap`` and the planner's ``while_loop``."""
+    def host(d, u, r):
+        return thomas_f64_host(d, u, r).astype(r.dtype)
+    return jax.pure_callback(host, jax.ShapeDtypeStruct(rhs.shape, rhs.dtype),
+                             diag, upper, rhs, vmap_method="expand_dims")
+
+
+def use_stage_f64():
+    """Every KKT solve of JAX's staged solver (the solve and both
+    refinements; the verification stays JAX's own) through
+    :func:`stage_solve_f64`. Call before the planner is first traced."""
+    from dlp_admm_tpu.solvers import ip_staged
+    ip_staged.block_thomas_solve = stage_solve_f64
+
+
 def moved_bar_state(bs, noise, seed):
     """The start ``bs`` with normal noise of size ``noise`` on ``z_bar``,
     drawn from ``default_rng(seed)`` in float64 and rounded to the state's
@@ -1357,8 +1443,13 @@ def main():
     ap.add_argument("--noise", type=float, default=0.0,
                     help="size of the normal noise added to the starting z_bar")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--stage-f64", action="store_true",
+                    help="f32: every KKT solve of the staged solver in "
+                         "float64 on the host (stage_solve_f64)")
     args = ap.parse_args()
-    if not args.noise and args.profile != "batch_f32":
+    if args.stage_f64 and args.profile != "f32":
+        ap.error("--stage-f64 serves the f32 profile")
+    if not args.noise and not args.stage_f64 and args.profile != "batch_f32":
         args.out = args.out or default_out(args.profile)
     jax.config.update("jax_enable_x64",
                       args.profile not in ("f32", "pi_admm_f32", "batch_f32"))
@@ -1370,8 +1461,11 @@ def main():
         return write_v9(args.out, commit)
     if args.profile == "batch":
         return write_batch(args.out, commit, args.noise, args.seed)
+    if args.stage_f64:
+        use_stage_f64()
     if args.profile == "batch_f32":
-        return write_batch_f32(args.out, commit, args.steps)
+        return write_batch_f32(args.out, commit, args.steps, args.noise,
+                               args.seed)
     if args.profile == "spmd":
         return write_spmd(args.out, commit)
     if args.profile == "classic":
@@ -1414,7 +1508,8 @@ def main():
     print(json.dumps(dict(
         out=os.path.relpath(args.out, ROOT) if args.out else None,
         profile=args.profile, noise=args.noise, seed=args.seed,
-        steps=int(len(its)), seconds=round(secs, 1),
+        stage_f64=args.stage_f64, steps=int(len(its)),
+        seconds=round(secs, 1),
         mean_iterations=float(its.mean()),
         steps_at_cap=int((its >= PROFILES[args.profile]["ocfg"][
             "max_admm_iters"]).sum()),

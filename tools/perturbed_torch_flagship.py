@@ -24,14 +24,12 @@ format, so that ``tools/check_torch_window.py`` and
 ``tools/jax_window_steps.py`` can start single steps from the run's own
 states. ``--device cpu`` runs the same on the CPU (the plain version of the
 kernels, the eager IP loop; hours per run), to tell what belongs to the
-card's path. ``--k1-f64`` hands the staged solver's float32 KKT solves to
-the float64 equilibrated kernel on the raised systems, the result cast back
-(a stand-in at this tool's level): K1's float32 rounding out of a run.
+card's path.
 
 Usage: python3 tools/perturbed_torch_flagship.py [--dtype f64|f32]
            [--noise EPS] [--seeds N ...] [--unmoved] [--jobs N]
            [--carries DIR] [--device cuda|cpu] [--out PATH.json]
-           [--k1-f64] [--steps N (a rehearsal)]
+           [--steps N (a rehearsal)]
 """
 import argparse
 import json
@@ -51,7 +49,6 @@ from dlp_admm_torch.config import Formulation  # noqa: E402
 from dlp_admm_torch.interop import bar_state_to_numpy  # noqa: E402
 from dlp_admm_torch.models.obca import ConsensusObcaPlanner  # noqa: E402
 from dlp_admm_torch.mpc import run_obca  # noqa: E402
-from dlp_admm_torch.solvers import ip_staged, thomas  # noqa: E402
 
 KEYS = ("steps", "res_ok", "mean_iterations", "min_distance_m",
         "min_footprint_gap_m", "health", "gap_median", "gap_max", "gates",
@@ -71,13 +68,6 @@ def moved_bar_state(bs, noise, seed):
         size=tuple(bs.z_bar.shape))
     return bs._replace(z_bar=bs.z_bar + torch.as_tensor(
         eps, dtype=bs.z_bar.dtype, device=bs.z_bar.device))
-
-
-def k1_f64(diag, upper, rhs):
-    """The float32 KKT solve through K1's float64 equilibrated variant."""
-    return thomas.block_thomas_solve(
-        diag.double().contiguous(), upper.double().contiguous(),
-        rhs.double().contiguous(), equilibrate=True).to(rhs.dtype)
 
 
 def one_run(args, seed, dtype, ref):
@@ -100,9 +90,6 @@ def one_run(args, seed, dtype, ref):
         ConsensusObcaPlanner.create_bar_state = noisy
     if args.carries:
         ConsensusObcaPlanner._mpc_step = keep_carry
-    solve = ip_staged.block_thomas_solve
-    if args.k1_f64:
-        ip_staged.block_thomas_solve = k1_f64
     try:
         res = run_obca(Formulation.CONSENSUS, device=args.device,
                        n_steps=args.steps,
@@ -110,7 +97,6 @@ def one_run(args, seed, dtype, ref):
     finally:
         ConsensusObcaPlanner.create_bar_state = create
         ConsensusObcaPlanner._mpc_step = mpc_step
-        ip_staged.block_thomas_solve = solve
     rec = chip_smoke.full_record(res, ref, str(dtype)[6:])
     summary = res.metrics.summary()
     cap = chip_smoke.flagship_profile(dtype)["ocfg"].max_admm_iters
@@ -118,7 +104,6 @@ def one_run(args, seed, dtype, ref):
                noise=0.0 if seed is None else args.noise, seed=seed,
                label=label(seed), device=args.device,
                steps_at_cap=int(sum(i >= cap for i in rec["iterations"])),
-               k1_f64=args.k1_f64,
                wall_s=summary["total_time_s"],
                iterations_per_s=summary["iterations_per_s"])
     if args.carries:
@@ -141,8 +126,6 @@ def side_by_side(args, seeds):
         base += ["--steps", str(args.steps)]
     if args.carries:
         base += ["--carries", args.carries]
-    if args.k1_f64:
-        base += ["--k1-f64"]
     stem = args.out or os.path.join(tempfile.mkdtemp(), "runs.json")
     out, todo, live = {}, list(seeds), {}
     while todo or live:
@@ -184,7 +167,6 @@ def main():
     ap.add_argument("--carries", default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
-    ap.add_argument("--k1-f64", action="store_true")
     ap.add_argument("--steps", type=int, default=None,
                     help="MPC steps (default 42; fewer only to rehearse)")
     args = ap.parse_args()
